@@ -1,0 +1,146 @@
+"""LM pose update from fused moments (port of
+``highlyaccurate_tpu/solver/updates.py:29-43, 79-92, 156-187, 325-393``).
+
+pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
+solve runs in float32 whatever the feature dtype.  The contractions are
+written as broadcast products and sums rather than ``einsum`` so that no
+matrix product (and hence no TF32 mode) is involved on the GPU.  The
+out-of-range re-init draws from an explicit ``torch.Generator``; it gives
+other numbers than the JAX package's keys for the same seed.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from highlyaccurate_tpu_torch.ops.banded_warp import MOM_IDX
+
+
+# shifts leaving (-REINIT_RANGE, REINIT_RANGE) are redrawn in [-1, 1)
+REINIT_RANGE = 2.5
+
+
+class LMConfig(NamedTuple):
+    """Static solver knobs of the S2GP update (subset of Config)."""
+    active_dims: tuple = (0, 1, 2)
+    train_damping: bool = False
+    damping: float = 0.1
+    use_hessian: bool = False
+
+
+def compute_damping(damping_param, cfg: LMConfig, n_active: int,
+                    device=None):
+    """Per-DoF damping vector [n_active] (float32).
+
+    Trained damping uses the reference's log-parameterization
+    10^(-6 + 11*sigmoid(d)) (models_kitti.py:962-963); otherwise a constant.
+    """
+    if cfg.train_damping:
+        d = damping_param.reshape(-1).to(torch.float32)
+        if d.shape[0] == 1:
+            d = d.expand(3)
+        d = torch.pow(10.0, -6.0 + torch.sigmoid(d) * 11.0)
+        return d[list(cfg.active_dims)][:n_active]
+    return torch.full((n_active,), cfg.damping, dtype=torch.float32,
+                      device=device)
+
+
+def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
+                      generator: torch.Generator):
+    """Damped solve on the active-DoF system, then the out-of-range uniform
+    re-init of the shifts (reference models_kitti.py:1005-1033).
+
+    hess [B, n, n] and g [B, n] are already active-dim sliced.  The re-init
+    numbers are drawn every round (as the JAX package splits its key every
+    round), from ``generator`` on the pose's device.  Only a solve over all
+    three DoF re-inits, as in the JAX package.
+    """
+    B = pose.shape[0]
+    act = list(cfg.active_dims)
+    n = len(act)
+    damping = compute_damping(damping_param, cfg, n, device=pose.device)
+    if cfg.use_hessian:
+        diag = torch.diagonal(hess, dim1=-2, dim2=-1)
+    else:
+        diag = torch.ones(B, n, dtype=torch.float32, device=pose.device)
+    lhs = hess + torch.diag_embed(damping[None, :] * diag)
+    # solve_ex: LU with partial pivoting like jnp.linalg.solve, and no
+    # host-side error check (which would synchronise with the device)
+    sol, _ = torch.linalg.solve_ex(lhs, g[..., None])
+    delta = -sol[..., 0]
+
+    new = pose.to(torch.float32).clone()
+    new[:, act] += delta
+    if n == 3:
+        rand = torch.rand(2, B, generator=generator, dtype=torch.float32,
+                          device=pose.device) * 2.0 - 1.0
+        lim = REINIT_RANGE
+        su, sv = new[:, 0], new[:, 1]
+        new = torch.stack([
+            torch.where((su > -lim) & (su < lim), su, rand[0]),
+            torch.where((sv > -lim) & (sv < lim), sv, rand[1]),
+            new[:, 2]], dim=-1)
+    return new
+
+
+def _pair(Pa, Da, Pb, Db, m0, m1, m2):
+    """Sum_v Sum_u duv_a[p] * duv_b[q] * S(v, u) with duv = P + u*D, from the
+    u-moment sums m0, m1, m2 [B, V] of S."""
+    def outer(X, Y, w):  # sum_v X[b,v,p] Y[b,v,q] w[b,v] -> [B, 3, 3]
+        return (X[:, :, :, None] * Y[:, :, None, :]
+                * w[:, :, None, None]).sum(1)
+    return (outer(Pa, Pb, m0) + (outer(Pa, Db, m1) + outer(Da, Pb, m1))
+            + outer(Da, Db, m2))
+
+
+def lm_update_from_moments(pose, M, P0, dP, damping_param, cfg: LMConfig,
+                           generator: torch.Generator):
+    """LM update from K1's per-row moments.
+
+    M [B, V, 3, 16] moment rows (sum, u-sum, u^2-sum) in ``MOM_IDX`` lane
+    order, in kernel axes; P0, dP [B, V, 2, 3] per-row affine duv
+    coefficients in the same (x, y) order as the kernel.  Returns the new
+    pose [B, 3], re-initialized from ``generator`` where a shift left the
+    range.  The S2GP eval update: normalized features, no pixel weights, no
+    dropout.
+    """
+    f32 = torch.float32
+    M = M.to(f32)
+
+    def mom(name, k):
+        return M[:, :, k, MOM_IDX[name]]  # [B, V]
+
+    # whole-map feature norms, floored: sqrt(max(., 1e-12))
+    ns = torch.sqrt(torch.clamp_min(mom("ss", 0).sum(1), 1e-12))  # [B]
+    ng = torch.sqrt(torch.clamp_min(mom("gg", 0).sum(1), 1e-12))
+
+    def pair(Pa, Da, Pb, Db, name):
+        return _pair(Pa, Da, Pb, Db, mom(name, 0), mom(name, 1), mom(name, 2))
+
+    Px, Py = P0[:, :, 0].to(f32), P0[:, :, 1].to(f32)  # [B, V, 3]
+    Dx_, Dy_ = dP[:, :, 0].to(f32), dP[:, :, 1].to(f32)
+
+    hess = (pair(Px, Dx_, Px, Dx_, "sxx")
+            + pair(Px, Dx_, Py, Dy_, "sxy")
+            + pair(Py, Dy_, Px, Dx_, "sxy")
+            + pair(Py, Dy_, Py, Dy_, "syy")) / (ns * ns)[:, None, None]
+
+    inv_ss = 1.0 / (ns * ns)[:, None]
+    inv_sg = 1.0 / (ns * ng)[:, None]
+    qx0 = mom("dxs", 0) * inv_ss - mom("dxg", 0) * inv_sg  # [B, V]
+    qx1 = mom("dxs", 1) * inv_ss - mom("dxg", 1) * inv_sg
+    qy0 = mom("dys", 0) * inv_ss - mom("dyg", 0) * inv_sg
+    qy1 = mom("dys", 1) * inv_ss - mom("dyg", 1) * inv_sg
+
+    def vdot(X, q):  # sum_v X[b,v,p] q[b,v] -> [B, 3]
+        return (X * q[:, :, None]).sum(1)
+
+    g_full = (vdot(Px, qx0) + vdot(Dx_, qx1)
+              + vdot(Py, qy0) + vdot(Dy_, qy1))
+
+    act = list(cfg.active_dims)
+    hess = hess[:, act][:, :, act]  # [B, n, n]
+    g = g_full[:, act]
+    return _solve_and_reinit(pose, hess, g, damping_param, cfg, generator)
