@@ -1,23 +1,28 @@
-"""LM_S2GP evaluation path (port of ``highlyaccurate_tpu/models/lm_s2gp.py:
-54-116, 146-186, 306-388, 666-830``).
+"""LM_S2GP evaluation and training (port of
+``highlyaccurate_tpu/models/lm_s2gp.py:54-143, 146-186, 306-394, 666-855``).
 
 Two VGGUnet branches give the satellite and ground feature pyramids; then
-N_iters x levels solver rounds refine the pose, iteration-major.  Every
-round is the fused-eval branch of the JAX package:
+N_iters x levels solver rounds refine the pose, iteration-major.  Each round
+runs ``s2gp_uv_jac`` at ground columns u = 0, 1 of each kept row (the row's
+satellite line is affine in u, so two points fix it), then one of two
+branches of the JAX package:
 
-  1. ``s2gp_uv_jac`` at ground columns u = 0, 1 of each kept row (the row's
-     satellite line is affine in u, so two points fix it);
-  2. ``banded_project``: swap to kernel axes and run K1
-     (``ops/banded_warp.py:banded_moments``) -> per-row moments;
-  3. ``lm_update_from_moments``.
+* evaluation (fused-eval): ``banded_project`` with target rows runs K1
+  (``ops/banded_warp.py:banded_moments``) -> per-row moments ->
+  ``lm_update_from_moments``;
+* training (banded implicit): ``banded_project`` without them runs the
+  differentiable sampler K2 / K3 (``banded_sample``) -> out, dx, dy ->
+  ``lm_update_implicit``; ``loss_func`` method 0 scores the trajectory.
 
 Only the bottom half of the ground rows is sampled (the sky crop).  The
-per-level satellite map is cast to the kernel's map dtype once per forward
-and handed to the kernel as a transposed view (kernel y = sat u, kernel x =
-sat v), since it does not change across rounds.
+satellite map goes to the kernels as a transposed view (kernel y = sat u,
+kernel x = sat v).  Evaluation casts it to the map dtype once per forward,
+since it does not change across rounds; training casts it inside the
+autograd function, so its gradient stays float32.
 
-This slice carries S2GP geo LM evaluation only; ``check_supported`` refuses
-every other option with ``NotImplementedError``.
+``check_supported`` refuses every option this port does not carry yet with
+``NotImplementedError``; ``loss_method`` other than 0 is refused when a
+training forward is called.
 """
 
 from __future__ import annotations
@@ -30,11 +35,14 @@ from torch import nn
 
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import kitti as geom
+from highlyaccurate_tpu_torch.losses.losses import loss_func
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.banded_warp import (banded_moments,
+                                                      banded_sample,
                                                       default_rb)
 from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
-                                                     lm_update_from_moments)
+                                                     lm_update_from_moments,
+                                                     lm_update_implicit)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
@@ -60,30 +68,45 @@ def check_supported(cfg: Config):
         if bad:
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch yet "
-                "(this slice carries KITTI S2GP geo LM evaluation)")
+                "(this slice carries KITTI S2GP geo LM evaluation and "
+                "training)")
 
 
-def banded_project(cfg: Config, sat_feat, uv01, duv01, mask_vw, moments_grd):
-    """K1 dispatch for one per-row-affine projection (moments branch).
+def banded_project(cfg: Config, sat_feat, uv01, duv01, mask_vw,
+                   moments_grd=None):
+    """Banded line sampling of one per-row-affine projection.
 
     Sat-u is the near-constant-depth axis, so ground rows trace near-vertical
-    lines in the satellite map; the kernel wants |dy/dx| < 1, so the map axes
+    lines in the satellite map; the kernels want |dy/dx| < 1, so the map axes
     and the uv components are swapped here (kernel x = sat v, kernel y =
-    sat u), and the duv rows with them.
+    sat u).
 
     Args:
-      sat_feat: [B, A, A, C] satellite features (any map dtype).
+      sat_feat: [B, A, A, C] satellite features (the map dtype for K1;
+        float32 for K2, which casts inside its autograd function).
       uv01: [B, V, 2, 2] satellite uv of each row's u = 0, 1 pixels.
       duv01: [B, V, 2, 2, 3] d(uv)/d(pose) at u = 0, 1.
-      mask_vw: [V, W] ray mask.  moments_grd: [B, V, W, C] target rows.
-    Returns (M [B, V, 3, 16], P0s, dPs [B, V, 2, 3]) in kernel axis order.
+      mask_vw: [V, W] ray mask.
+      moments_grd: [B, V, W, C] target rows, or None.
+    Returns, with ``moments_grd`` (K1, evaluation): (M [B, V, 3, 16], P0s,
+    dPs [B, V, 2, 3]) in kernel axis order.  Without it (K2, training; the
+    implicit branch): (out, dx, dy [B, V, W, C], P0, dP [B, V, 2, 3]), with
+    dx, dy the sat-u and sat-v derivatives (the kernel's y and x) and P0, dP
+    in sat (u, v) order, differentiable with respect to sat_feat and uv01.
     """
     A = sat_feat.shape[1]
     RB = default_rb(A)
     uv01s = uv01.flip(-1)
     sat_t = sat_feat.transpose(1, 2)  # view: kernel axes (y, x)
+    bf16_map = bool(cfg.banded_bf16_map)
+    if moments_grd is None:
+        out, dv, du = banded_sample(sat_t, uv01s[:, :, 0], uv01s[:, :, 1],
+                                    W=mask_vw.shape[1], RB=RB,
+                                    bf16_map=bf16_map)
+        P0 = duv01[:, :, 0]                           # [B, V, 2, 3]
+        return out, du, dv, P0, duv01[:, :, 1] - P0
     M = banded_moments(sat_t, moments_grd, mask_vw, uv01s[:, :, 0],
-                       uv01s[:, :, 1], RB=RB, bf16_map=bool(cfg.banded_bf16_map))
+                       uv01s[:, :, 1], RB=RB, bf16_map=bf16_map)
     P0s = duv01[:, :, 0].flip(-2)                     # [B, V, 2, 3]
     dPs = (duv01[:, :, 1] - duv01[:, :, 0]).flip(-2)
     return M, P0s, dPs
@@ -120,7 +143,7 @@ def level_slots(cfg: Config):
 
 
 class LMS2GP(nn.Module):
-    """Flagship KITTI model, direction S2GP, evaluation path.
+    """Flagship KITTI model, direction S2GP.
 
     ``state_dict`` keys follow the reference: ``SatFeatureNet.*``,
     ``GrdFeatureNet.*``, ``damping``.
@@ -162,22 +185,33 @@ class LMS2GP(nn.Module):
         grd_feats, grd_confs = self.GrdFeatureNet(grd_img)
         return sat_feats, sat_confs, grd_feats, grd_confs
 
-    def _solver_round(self, pose, slot: int, sat_feat, grd_rows, generator):
-        """One (iteration, level) round of the fused-eval branch."""
+    def _solver_round(self, pose, slot: int, sat_feat, grd_rows, generator,
+                      train: bool = False):
+        """One (iteration, level) round: the fused-eval branch, or with
+        ``train`` the differentiable banded implicit branch."""
         cfg = self.cfg
         A = sat_feat.shape[1]
+        mask = getattr(self, f"mask_{slot}")
         uv01, duv01 = geom.s2gp_uv_jac(
             pose, getattr(self, f"xyz01_{slot}"), A, cfg.rotation_range,
             cfg.shift_range_lat, cfg.shift_range_lon)
-        M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01,
-                                     getattr(self, f"mask_{slot}"), grd_rows)
+        if train:
+            out, dx, dy, P0, dP = banded_project(cfg, sat_feat, uv01, duv01,
+                                                 mask)
+            return lm_update_implicit(pose, out, dx, dy, grd_rows, mask, P0,
+                                      dP, self.damping, self.lm_cfg,
+                                      generator)
+        M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01, mask,
+                                     grd_rows)
         return lm_update_from_moments(pose, M, P0s, dPs, self.damping,
                                       self.lm_cfg, generator)
 
-    def _run_rounds(self, pose0, sat_feats, grd_feats, generator):
-        """Iteration-first (iteration x level) loop -> [B, I*L, 3]."""
+    def _run_rounds(self, pose0, sat_feats, grd_feats, generator,
+                    train: bool):
+        """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]."""
         cfg = self.cfg
-        map_dtype = torch.bfloat16 if cfg.banded_bf16_map else torch.float32
+        map_dtype = (torch.bfloat16 if cfg.banded_bf16_map and not train
+                     else torch.float32)
         sats, grds = [], []
         for lvl in range(len(self._slots)):
             # constant across rounds: the map cast and the kept target rows
@@ -188,13 +222,14 @@ class LMS2GP(nn.Module):
         for _ in range(cfg.N_iters):
             for lvl, slot in enumerate(self._slots):
                 pose = self._solver_round(pose, slot, sats[lvl], grds[lvl],
-                                          generator)
+                                          generator, train)
                 traj.append(pose)
-        return torch.stack(traj, dim=1)
+        return torch.stack(traj, dim=1).reshape(pose0.shape[0], cfg.N_iters,
+                                                len(self._slots), 3)
 
-    @torch.no_grad()
     def forward(self, sat_map, grd_img, mode: str = "test",
                 init_pose: Optional[torch.Tensor] = None, *,
+                gt_pose: Optional[torch.Tensor] = None,
                 generator: torch.Generator):
         """Feature extraction + unrolled solver.
 
@@ -204,19 +239,41 @@ class LMS2GP(nn.Module):
         out-of-range re-init draw, which every round makes.
 
         mode 'test' -> (shift_lat, shift_lon, theta) each [B];
-        mode 'trajectory' -> the same three, each [B, N_iters, levels].
+        mode 'trajectory' -> the same three, each [B, N_iters, levels];
+        mode 'train' -> ``LossDiagnostics`` of ``loss_func`` against
+        ``gt_pose`` [B, 3] (normalized (shift_u, shift_v, heading)),
+        differentiable with respect to the parameters.  Only the two
+        evaluation modes run without autograd.
         """
-        if mode not in ("test", "trajectory"):
-            raise NotImplementedError(f"mode={mode!r} (this slice carries "
-                                      "evaluation only)")
+        if mode not in ("test", "trajectory", "train"):
+            raise NotImplementedError(f"mode={mode!r}")
+        train = mode == "train"
+        if train and self.cfg.loss_method != 0:
+            raise NotImplementedError(
+                f"loss_method={self.cfg.loss_method} is not supported by "
+                "highlyaccurate_tpu_torch yet (training carries method 0)")
+        if train and gt_pose is None:
+            raise ValueError("mode='train' needs gt_pose")
+        with torch.set_grad_enabled(train and torch.is_grad_enabled()):
+            return self._forward(sat_map, grd_img, mode, init_pose, gt_pose,
+                                 generator)
+
+    def _forward(self, sat_map, grd_img, mode, init_pose, gt_pose, generator):
         cfg = self.cfg
         B = sat_map.shape[0]
         sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
         pose0 = (torch.zeros(B, 3, dtype=torch.float32, device=self.device)
                  if init_pose is None else init_pose.to(torch.float32))
-        traj = self._run_rounds(pose0, sat_feats, grd_feats, generator)
-        traj = traj.reshape(B, cfg.N_iters, len(self._slots), 3)
+        traj = self._run_rounds(pose0, sat_feats, grd_feats, generator,
+                                train=mode == "train")
         shift_lats, shift_lons, thetas = traj[..., 1], traj[..., 0], traj[..., 2]
         if mode == "trajectory":
             return shift_lats, shift_lons, thetas
-        return shift_lats[:, -1, -1], shift_lons[:, -1, -1], thetas[:, -1, -1]
+        if mode == "test":
+            return (shift_lats[:, -1, -1], shift_lons[:, -1, -1],
+                    thetas[:, -1, -1])
+        gt = gt_pose.to(torch.float32)
+        coe_heading = 0.0 if cfg.rotation_range == 0 else cfg.coe_heading
+        return loss_func(cfg.loss_method, shift_lats, shift_lons, thetas,
+                         gt[:, 1], gt[:, 0], gt[:, 2], cfg.coe_shift_lat,
+                         cfg.coe_shift_lon, coe_heading)

@@ -1,18 +1,24 @@
-"""Fused-moment banded line sampler, K1 (port of
-``highlyaccurate_tpu/ops/pallas/banded_warp.py:54-60, 272-273, 704-796,
-1282-1335``).
+"""Banded line samplers: K1, the fused-moment sampler of evaluation, and
+K2 / K3, the differentiable sampler of training and its map gradient (port
+of ``highlyaccurate_tpu/ops/pallas/banded_warp.py:54-132, 272-273,
+704-796, 1046-1116, 1147-1193, 1204-1335``).
 
 The S2GP geo projection maps every ground row to a straight line in the
 satellite map, affine in the ground column u.  K1 samples the map
 bilinearly along each row's line, takes the screen derivatives, and
 contracts them with the target row into the 9 channel moments the LM update
 needs (``MOM_IDX``), each summed over u with weights 1, u, u^2: out
-[B, V, 3, 16].  The [B, V, W, C] samples never reach device memory.
+[B, V, 3, 16].  The [B, V, W, C] samples never reach device memory.  K2
+emits those samples, out, dx, dy (and dxy, the cross derivative the
+coefficient gradients need) as [B, V, W, C]; K3 scatters their gradients
+back onto the map.  ``banded_sample`` ties K2 and K3 into one autograd
+function with the coefficient gradients of the JAX custom VJP.
 
-``banded_moments`` is the wrapper: on CUDA tensors it launches the CUDA
-kernel (``csrc/banded_moments.cu``) or raises; on CPU tensors it runs the
-plain PyTorch version ``banded_moments_reference``, which the tests hold to
-the JAX kernel.  ``banded_moments.launches`` counts kernel launches.
+Each kernel's wrapper launches its CUDA kernel (``csrc/banded_moments.cu``,
+``csrc/banded_sampler.cu``) on CUDA tensors, or raises; on CPU tensors it
+runs the plain PyTorch version beside it, which the tests hold to the JAX
+kernel.  ``banded_moments.launches``, ``banded_sample.launches`` (K2) and
+``banded_sample_backward.launches`` (K3) count kernel launches.
 """
 
 from __future__ import annotations
@@ -91,29 +97,42 @@ def _map_dtype(bf16_map: bool):
     return torch.bfloat16 if bf16_map else torch.float32
 
 
-def moments_from_coefs_reference(sat_k, grd, mask, coefs):
-    """Plain PyTorch K1 on packed coefficients.
+def _line_cells(coefs, W: int, A: int):
+    """The bilinear cell of every sample on every row's line, as all three
+    kernels sample: x = ax + bx*u, y = ay + by*u for u in [0, W).
 
-    sat_k [B, A, A, C] in kernel axes (y, x), already in the map dtype;
-    grd [B, V, W, C]; mask [V, W]; coefs [B, V, 8].  Returns [B, V, 3, 16].
+    Returns x0, y0 (int64 [B, V, W], zero where masked), fx, fy and the
+    mask m (float32 [B, V, W]: 1 where the sample is in the AxA map and
+    clear of the edge quirk, floor(x) < A-1 and floor(y) < A-1).
     """
-    B, A = sat_k.shape[:2]
-    V, W = mask.shape
     f32 = torch.float32
-    u = torch.arange(W, dtype=f32, device=grd.device)
+    u = torch.arange(W, dtype=f32, device=coefs.device)
     ax, bx, ay, by = (coefs[..., i:i + 1] for i in range(4))
     x = ax + bx * u                                       # [B, V, W]
     y = ay + by * u
     x0f = torch.floor(x)
     y0f = torch.floor(y)
-    fx = x - x0f
-    fy = y - y0f
     m = ((x >= 0) & (x <= A - 1) & (y >= 0) & (y <= A - 1)
          & (x0f < A - 1) & (y0f < A - 1)).to(f32)
     keep = m > 0
     x0 = torch.where(keep, x0f, torch.zeros_like(x0f)).long()
     y0 = torch.where(keep, y0f, torch.zeros_like(y0f)).long()
-    bi = torch.arange(B, device=grd.device)[:, None, None]
+    return x0, y0, x - x0f, y - y0f, m
+
+
+def banded_sample_reference(sat_k, coefs, W: int, with_dxy: bool):
+    """Plain PyTorch K2 on packed coefficients.
+
+    sat_k [B, A, A, C] in kernel axes (y, x), already in the map dtype;
+    coefs [B, V, 8].  Returns (out, dx, dy) or, ``with_dxy``, (out, dx, dy,
+    dxy), each [B, V, W, C] float32 and zero at masked samples:
+    out = sum wx*gy*map, dx = sum dwx*gy*map, dy = sum wx*dgy*map,
+    dxy = sum dwx*dgy*map, where wx and dwx carry the mask.
+    """
+    B, A = sat_k.shape[:2]
+    f32 = torch.float32
+    x0, y0, fx, fy, m = _line_cells(coefs, W, A)
+    bi = torch.arange(B, device=sat_k.device)[:, None, None]
 
     def corner(dy, dx):
         return sat_k[bi, y0 + dy, x0 + dx].to(f32)        # [B, V, W, C]
@@ -127,18 +146,67 @@ def moments_from_coefs_reference(sat_k, grd, mask, coefs):
     s = gya * (wxa * a + wxb * b) + gyb * (wxa * c + wxb * d)
     dx = mm * (gya * (b - a) + gyb * (d - c))
     dy = wxa * (c - a) + wxb * (d - b)
-    g = grd.to(f32)
+    if with_dxy:
+        return s, dx, dy, mm * (a - b - c + d)
+    return s, dx, dy
 
+
+def banded_sample_backward_reference(coefs, g_o, g_dx, g_dy, A: int):
+    """Plain PyTorch K3: the exact transpose of K2's (out, dx, dy).
+
+    coefs [B, V, 8]; g_o, g_dx, g_dy [B, V, W, C] float32.  Each corner of
+    each kept sample receives g_o*wx*gy + g_dx*dwx*gy + g_dy*wx*dgy.
+    Returns the map gradient [B, A, A, C] float32 in kernel axes.
+    """
+    B, V, W, C = g_o.shape
+    x0, y0, fx, fy, m = _line_cells(coefs, W, A)
+    wxa = ((1.0 - fx) * m)[..., None]
+    wxb = (fx * m)[..., None]
+    gya = (1.0 - fy)[..., None]
+    gyb = fy[..., None]
+    mm = m[..., None]
+    gx = g_dx * mm
+    grad = torch.zeros(B * A * A, C, dtype=torch.float32, device=g_o.device)
+    base = ((torch.arange(B, device=g_o.device)[:, None, None] * A + y0) * A
+            + x0)                                         # [B, V, W]
+    for t, off in ((g_o * wxa * gya - gx * gya - g_dy * wxa, 0),
+                   (g_o * wxb * gya + gx * gya - g_dy * wxb, 1),
+                   (g_o * wxa * gyb - gx * gyb + g_dy * wxa, A),
+                   (g_o * wxb * gyb + gx * gyb + g_dy * wxb, A + 1)):
+        grad.index_add_(0, (base + off).reshape(-1), t.reshape(-1, C))
+    return grad.view(B, A, A, C)
+
+
+def moment_sums(s, dx, dy, grd, mask):
+    """The LM moments of line samples, the contraction K1 fuses: the nine
+    per-pixel channel dots of (s, dx, dy) and the target rows ``grd``
+    (``MOM_IDX`` order) under the ray mask [V, W], each summed over u with
+    weights 1, u, u^2.  Returns [B, V, 3, 9] float32."""
+    f32 = torch.float32
+    g = grd.to(f32)
     cols = torch.stack([
         (s * s).sum(-1), (g * g).sum(-1),
         (dx * dx).sum(-1), (dx * dy).sum(-1), (dy * dy).sum(-1),
         (dx * s).sum(-1), (dy * s).sum(-1),
         (dx * g).sum(-1), (dy * g).sum(-1)], dim=-1)      # [B, V, W, 9]
     cols = cols * mask.to(f32)[None, :, :, None]
+    u = torch.arange(mask.shape[1], dtype=f32, device=cols.device)
     wts = torch.stack([torch.ones_like(u), u, u * u])     # [3, W]
-    mom = (cols[:, :, None] * wts[None, None, :, :, None]).sum(3)  # [B,V,3,9]
-    out = torch.zeros(B, V, 3, _MOM_LANES, dtype=f32, device=grd.device)
-    out[..., :len(MOM_IDX)] = mom
+    return (cols[:, :, None] * wts[None, None, :, :, None]).sum(3)
+
+
+def moments_from_coefs_reference(sat_k, grd, mask, coefs):
+    """Plain PyTorch K1 on packed coefficients.
+
+    sat_k [B, A, A, C] in kernel axes (y, x), already in the map dtype;
+    grd [B, V, W, C]; mask [V, W]; coefs [B, V, 8].  Returns [B, V, 3, 16].
+    """
+    B = sat_k.shape[0]
+    V, W = mask.shape
+    s, dx, dy = banded_sample_reference(sat_k, coefs, W, with_dxy=False)
+    out = torch.zeros(B, V, 3, _MOM_LANES, dtype=torch.float32,
+                      device=grd.device)
+    out[..., :len(MOM_IDX)] = moment_sums(s, dx, dy, grd, mask)
     return out
 
 
@@ -152,58 +220,83 @@ def banded_moments_reference(sat_k, grd, mask, uv0, uv1, *, RB: int,
                                         mask, coefs)
 
 
-def _check(cond: bool, msg: str):
+def _check(cond: bool, kernel: str, msg: str):
     if not cond:
-        raise ValueError(f"banded_moments: {msg}")
+        raise ValueError(f"{kernel}: {msg}")
+
+
+def _check_inputs(kernel: str, coefs, B: int, V: int, W: int, C: int,
+                  sat_k=None):
+    """What every kernel of this module takes: float32 contiguous coefs
+    [B, V, 8]; an even channel count; a grid within the CUDA limits; and,
+    when given, a square bf16 or fp32 map on the coefs' device with unit
+    channel stride and channel-pair alignment (a strided view is fine)."""
+    _check(C % 2 == 0, kernel, f"channel count must be even, got {C}")
+    _check(coefs.dtype == torch.float32 and coefs.is_contiguous()
+           and tuple(coefs.shape) == (B, V, _NCOEF), kernel,
+           f"coefs must be contiguous float32 [{B}, {V}, {_NCOEF}]")
+    _check(B * V * ((W * C // 2 + 255) // 256) < 2 ** 31, kernel,
+           "too many samples for one launch")
+    if sat_k is None:
+        return
+    _check(sat_k.shape[1] == sat_k.shape[2], kernel,
+           f"map must be square, got {tuple(sat_k.shape)}")
+    _check(sat_k.device == coefs.device, kernel,
+           f"coefs on {coefs.device}, map on {sat_k.device}")
+    _check(sat_k.dtype in (torch.bfloat16, torch.float32), kernel,
+           f"map must be bfloat16 or float32, got {sat_k.dtype}")
+    _check(sat_k.stride(3) == 1 and all(s % 2 == 0 for s in sat_k.stride()[:3])
+           and sat_k.data_ptr() % (2 * sat_k.element_size()) == 0, kernel,
+           "map needs unit channel stride and channel-pair alignment")
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
-    """The kernel's C entry point, built and typed once per process."""
-    fn = _build.load("banded_moments").banded_moments_launch
+def _entry(lib: str, name: str, argtypes: tuple):
+    """A kernel's C entry point, built, loaded and typed once per process."""
+    fn = getattr(_build.load(lib), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_longlong] * 4 + [ctypes.c_int, ctypes.c_void_p])
+    fn.argtypes = list(argtypes)
     return fn
 
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def _run(kernel: str, fn, dev, *args):
+    """Call a launcher on the current stream of ``dev``; raise on a CUDA
+    error from the launch."""
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {err}")
+
+
 def _launch(sat_k, grd, mask, coefs, bf16_map: bool):
-    """Validate and launch the CUDA kernel on the current stream."""
-    B, A, A2, C = sat_k.shape
+    """Validate and launch K1 on the current stream."""
+    B, A, _, C = sat_k.shape
     V, W = mask.shape
     dev = sat_k.device
-    _check(A == A2, f"map must be square, got {tuple(sat_k.shape)}")
-    _check(C % 2 == 0, f"channel count must be even, got {C}")
-    for name, t in (("grd", grd), ("mask", mask), ("coefs", coefs)):
-        _check(t.device == dev, f"{name} on {t.device}, map on {dev}")
-    _check(sat_k.dtype == _map_dtype(bf16_map),
+    k = "banded_moments"
+    _check_inputs(k, coefs, B, V, W, C, sat_k)
+    for name, t in (("grd", grd), ("mask", mask)):
+        _check(t.device == dev, k, f"{name} on {t.device}, map on {dev}")
+    _check(sat_k.dtype == _map_dtype(bf16_map), k,
            f"map dtype {sat_k.dtype} does not match bf16_map={bf16_map}")
-    _check(sat_k.stride(3) == 1 and all(s % 2 == 0 for s in sat_k.stride()[:3])
-           and sat_k.data_ptr() % (2 * sat_k.element_size()) == 0,
-           "map needs unit channel stride and channel-pair alignment")
-    _check(grd.dtype == torch.float32 and tuple(grd.shape) == (B, V, W, C),
+    _check(grd.dtype == torch.float32 and tuple(grd.shape) == (B, V, W, C), k,
            f"grd must be float32 [{B}, {V}, {W}, {C}], got {grd.dtype} "
            f"{tuple(grd.shape)}")
     _check(grd[0].is_contiguous() and grd.stride(0) % 2 == 0
-           and grd.data_ptr() % 8 == 0,
+           and grd.data_ptr() % 8 == 0, k,
            "grd rows of one image must be contiguous")
-    _check(mask.dtype == torch.float32 and mask.is_contiguous(),
+    _check(mask.dtype == torch.float32 and mask.is_contiguous(), k,
            "mask must be contiguous float32 [V, W]")
-    _check(coefs.dtype == torch.float32 and coefs.is_contiguous()
-           and tuple(coefs.shape) == (B, V, _NCOEF),
-           f"coefs must be contiguous float32 [{B}, {V}, {_NCOEF}]")
 
     out = torch.empty(B, V, 3, _MOM_LANES, dtype=torch.float32, device=dev)
-    fn = _kernel_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(coefs.data_ptr(), sat_k.data_ptr(), grd.data_ptr(),
-                 mask.data_ptr(), out.data_ptr(), B, V, W, A, C,
-                 sat_k.stride(0), sat_k.stride(1), sat_k.stride(2),
-                 grd.stride(0), int(bf16_map), stream)
-    if err != 0:
-        raise RuntimeError(f"banded_moments kernel launch failed: CUDA error "
-                           f"{err}")
+    fn = _entry("banded_moments", "banded_moments_launch",
+                (_P,) * 5 + (_I,) * 5 + (_L,) * 4 + (_I, _P))
+    _run(k, fn, dev, coefs.data_ptr(), sat_k.data_ptr(), grd.data_ptr(),
+         mask.data_ptr(), out.data_ptr(), B, V, W, A, C, sat_k.stride(0),
+         sat_k.stride(1), sat_k.stride(2), grd.stride(0), int(bf16_map))
     banded_moments.launches += 1
     return out
 
@@ -214,8 +307,8 @@ def moments_from_coefs(sat_k, grd, mask, coefs, *, bf16_map: bool):
     ``sat_k`` must already be in the map dtype."""
     if sat_k.device.type == "cpu":
         return moments_from_coefs_reference(sat_k, grd, mask, coefs)
-    if sat_k.device.type != "cuda":
-        raise ValueError(f"banded_moments: unsupported device {sat_k.device}")
+    _check(sat_k.device.type == "cuda", "banded_moments",
+           f"unsupported device {sat_k.device}")
     return _launch(sat_k, grd, mask, coefs, bf16_map)
 
 
@@ -238,3 +331,129 @@ def banded_moments(sat_k, grd, mask, uv0, uv1, *, RB: int, bf16_map: bool):
 
 
 banded_moments.launches = 0
+
+
+def banded_sample_forward(sat_k, coefs, W: int, *, with_dxy: bool):
+    """K2 on packed row coefficients: the CUDA kernel for CUDA tensors (or
+    raises), ``banded_sample_reference`` for CPU tensors.
+
+    sat_k [B, A, A, C] in kernel axes, bf16 or fp32 (the map dtype; a
+    strided view with unit channel stride is fine); coefs [B, V, 8].
+    Returns (out, dx, dy[, dxy]) [B, V, W, C] float32.  Counts launches in
+    ``banded_sample.launches``.
+    """
+    if sat_k.device.type == "cpu":
+        return banded_sample_reference(sat_k, coefs, W, with_dxy)
+    k = "banded_sample"
+    _check(sat_k.device.type == "cuda", k, f"unsupported device {sat_k.device}")
+    B, A, _, C = sat_k.shape
+    V = coefs.shape[1]
+    _check_inputs(k, coefs, B, V, W, C, sat_k)
+    outs = tuple(torch.empty(B, V, W, C, dtype=torch.float32,
+                             device=sat_k.device)
+                 for _ in range(4 if with_dxy else 3))
+    fn = _entry("banded_sampler", "banded_sample_launch",
+                (_P,) * 6 + (_I,) * 5 + (_L,) * 3 + (_I, _P))
+    _run(k, fn, sat_k.device, coefs.data_ptr(), sat_k.data_ptr(),
+         *(o.data_ptr() for o in outs[:3]),
+         outs[3].data_ptr() if with_dxy else None, B, V, W, A, C,
+         sat_k.stride(0), sat_k.stride(1), sat_k.stride(2),
+         int(sat_k.dtype == torch.bfloat16))
+    banded_sample.launches += 1
+    return outs
+
+
+def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int):
+    """K3: the map gradient [B, A, A, C] float32 (kernel axes) of K2's
+    (out, dx, dy) under the cotangents g_o, g_dx, g_dy [B, V, W, C] float32.
+    The CUDA kernel for CUDA tensors (or raises; its fp32 atomics sum each
+    map cell in a run-dependent order), ``banded_sample_backward_reference``
+    for CPU tensors."""
+    if g_o.device.type == "cpu":
+        return banded_sample_backward_reference(coefs, g_o, g_dx, g_dy, A)
+    k = "banded_sample_backward"
+    dev = g_o.device
+    _check(dev.type == "cuda", k, f"unsupported device {dev}")
+    B, V, W, C = g_o.shape
+    _check_inputs(k, coefs, B, V, W, C)
+    _check(coefs.device == dev, k, f"coefs on {coefs.device}, g_o on {dev}")
+    for name, t in (("g_o", g_o), ("g_dx", g_dx), ("g_dy", g_dy)):
+        _check(t.device == dev and t.dtype == torch.float32
+               and t.is_contiguous() and t.shape == g_o.shape
+               and t.data_ptr() % 8 == 0, k,
+               f"{name} must be contiguous 8-byte aligned float32 "
+               f"{tuple(g_o.shape)} on {dev}")
+    grad = torch.zeros(B, A, A, C, dtype=torch.float32, device=dev)
+    fn = _entry("banded_sampler", "banded_sample_backward_launch",
+                (_P,) * 5 + (_I,) * 5 + (_P,))
+    _run(k, fn, dev, coefs.data_ptr(), g_o.data_ptr(), g_dx.data_ptr(),
+         g_dy.data_ptr(), grad.data_ptr(), B, V, W, A, C)
+    banded_sample_backward.launches += 1
+    return grad
+
+
+banded_sample_backward.launches = 0
+
+
+class BandedSample(torch.autograd.Function):
+    """K2 forward, K3 backward and the coefficient gradients of the JAX
+    custom VJP (port of ``sample`` / ``sample_fwd`` / ``sample_bwd``,
+    ``banded_warp.py:1240-1268``).
+
+    ``apply(sat, coefs, W, bf16_map)``: sat [B, A, A, C] float32 in kernel
+    axes (a strided view is fine), coefs [B, V, 8] -> (out, dx, dy).  The
+    map is cast to bf16 here, inside the function, so the map gradient
+    reaches ``sat`` in float32: K3 never reads the map.  The forward
+    computes dxy, and saves it with coefs, dx and dy, only when the
+    coefficients need a gradient.
+    """
+
+    @staticmethod
+    def forward(ctx, sat, coefs, W, bf16_map):
+        with_dxy = ctx.needs_input_grad[1]
+        outs = banded_sample_forward(sat.to(_map_dtype(bf16_map)), coefs, W,
+                                     with_dxy=with_dxy)
+        ctx.A = sat.shape[1]
+        ctx.save_for_backward(coefs, *outs[1:])
+        return outs[:3]
+
+    @staticmethod
+    def backward(ctx, g_o, g_dx, g_dy):
+        # autograd hands in zeros for an output that got no gradient
+        coefs, dx, dy, *dxy = ctx.saved_tensors
+        g_o, g_dx, g_dy = (g.contiguous() for g in (g_o, g_dx, g_dy))
+        grad_sat = grad_coefs = None
+        if ctx.needs_input_grad[0]:
+            grad_sat = banded_sample_backward(coefs, g_o, g_dx, g_dy, ctx.A)
+        if ctx.needs_input_grad[1]:
+            # bilinear second derivatives: d2/dx2 = d2/dy2 = 0 almost
+            # everywhere, the cross term dxy survives
+            (dxy,) = dxy
+            sx = (g_o * dx + g_dy * dxy).sum(-1)          # [B, V, W]
+            sy = (g_o * dy + g_dx * dxy).sum(-1)
+            u = torch.arange(dx.shape[2], dtype=torch.float32,
+                             device=dx.device)
+            zeros = torch.zeros_like(sx[..., 0])
+            grad_coefs = torch.stack(
+                [sx.sum(-1), (sx * u).sum(-1), sy.sum(-1), (sy * u).sum(-1),
+                 zeros, zeros, zeros, zeros], dim=-1)
+        return grad_sat, grad_coefs, None, None
+
+
+def banded_sample(sat, uv0, uv1, *, W: int, RB: int, bf16_map: bool):
+    """The differentiable banded line sampler (port of ``sample_uv``,
+    ``banded_warp.py:1275-1279``).
+
+    sat [B, A, A, C] in kernel axes (kernel y = axis 1, x = axis 2; a
+    strided view is fine), sampled in float32 or, with ``bf16_map``, from a
+    bf16 copy made inside the autograd function; uv0/uv1 [B, V, 2]
+    kernel-axis (x, y) of each row's samples at u = 0 and 1; W samples per
+    row.  Returns (out, dx, dy), each [B, V, W, C] float32, differentiable
+    with respect to sat, uv0 and uv1 (through ``pack_row_coefs``, whose
+    validity guard gives the rows it zeroes a zero gradient).
+    """
+    coefs = pack_row_coefs(uv0, uv1, sat.shape[1], RB, W)
+    return BandedSample.apply(sat.to(torch.float32), coefs, W, bf16_map)
+
+
+banded_sample.launches = 0

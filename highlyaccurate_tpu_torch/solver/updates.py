@@ -1,5 +1,6 @@
-"""LM pose update from fused moments (port of
-``highlyaccurate_tpu/solver/updates.py:29-43, 79-92, 156-187, 325-393``).
+"""LM pose updates of the S2GP solver (port of
+``highlyaccurate_tpu/solver/updates.py:29-43, 79-92, 156-237, 251-393``):
+from K1's fused moments (evaluation) and from K2's line samples (training).
 
 pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
 solve runs in float32 whatever the feature dtype.  The contractions are
@@ -15,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from highlyaccurate_tpu_torch.ops.banded_warp import MOM_IDX
+from highlyaccurate_tpu_torch.ops.banded_warp import MOM_IDX, moment_sums
 
 
 # shifts leaving (-REINIT_RANGE, REINIT_RANGE) are redrawn in [-1, 1)
@@ -99,9 +100,10 @@ def lm_update_from_moments(pose, M, P0, dP, damping_param, cfg: LMConfig,
                            generator: torch.Generator):
     """LM update from K1's per-row moments.
 
-    M [B, V, 3, 16] moment rows (sum, u-sum, u^2-sum) in ``MOM_IDX`` lane
-    order, in kernel axes; P0, dP [B, V, 2, 3] per-row affine duv
-    coefficients in the same (x, y) order as the kernel.  Returns the new
+    M [B, V, 3, 16] (or the first 9 lanes, [B, V, 3, 9]) moment rows (sum,
+    u-sum, u^2-sum) in ``MOM_IDX`` lane order, in kernel axes; P0, dP
+    [B, V, 2, 3] per-row affine duv coefficients in the same (x, y) order
+    as the kernel.  Returns the new
     pose [B, 3], re-initialized from ``generator`` where a shift left the
     range.  The S2GP eval update: normalized features, no pixel weights, no
     dropout.
@@ -144,3 +146,22 @@ def lm_update_from_moments(pose, M, P0, dP, damping_param, cfg: LMConfig,
     hess = hess[:, act][:, :, act]  # [B, n, n]
     g = g_full[:, act]
     return _solve_and_reinit(pose, hess, g, damping_param, cfg, generator)
+
+
+def lm_update_implicit(pose, out, dx, dy, grd, mask, P0, dP, damping_param,
+                       cfg: LMConfig, generator: torch.Generator):
+    """LM update from implicit (never materialized) Jacobians, the training
+    path's update: differentiable with respect to every tensor argument.
+
+    out, dx, dy [B, V, W, C] line samples and screen derivatives (K2's
+    outputs, masked in bounds); grd [B, V, W, C] target rows; mask [V, W]
+    ray mask; P0, dP [B, V, 2, 3] per-row affine duv coefficients in the
+    (dx, dy) order of the samples.  The nine per-pixel channel moments
+    under the ray mask, summed over u with weights 1, u, u^2, are exactly
+    what K1 fuses, so the rest is ``lm_update_from_moments``.  The
+    contraction is plain torch, as the JAX package left it to XLA.
+    """
+    f32 = torch.float32
+    M = moment_sums(out.to(f32), dx.to(f32), dy.to(f32), grd, mask)
+    return lm_update_from_moments(pose, M, P0, dP, damping_param, cfg,
+                                  generator)

@@ -120,9 +120,13 @@ def test_unsupported_entry_options_raise():
     sat, grd = _images(0, n=1)
     with pytest.raises(NotImplementedError, match="return_cov"):
         loc.predict(sat, grd, return_cov=True)
-    with pytest.raises(NotImplementedError, match="train"):
+    # loss_method 1-3 still serve, as in JAX; training refuses them
+    loc = Localizer(Config(**TINY, loss_method=1), random_init=True,
+                    device="cpu")
+    loc.predict(sat, grd)
+    with pytest.raises(NotImplementedError, match="loss_method"):
         loc.model(torch.from_numpy(sat), torch.from_numpy(grd), mode="train",
-                  generator=torch.Generator())
+                  gt_pose=torch.zeros(1, 3), generator=torch.Generator())
 
 
 def test_device_none_raises_without_cuda():
