@@ -8,20 +8,22 @@ Builds the hand-written kernels from the sources in the checkout, then:
 1. kernels: K1 (``banded_moments``), K2 (``banded_sample_forward``) and K3
    (``banded_sample_backward``) at each flagship launch shape (KITTI S2GP,
    512x512 satellite, 256x1024 ground, level=3, batch 8, bf16 map), lines
-   from ``s2gp_uv_jac`` at random in-range poses, each against its plain
-   PyTorch version on the card; kernel and plain times (CUDA events, warmed
-   up, L2 flushed before every launch, as the solver finds the map cold)
-   beside the least time the card could take (bytes and operations this
-   run's data needs, H100 SXM peaks); and the whole VJP of the sampler
-   (K2, K3 and the coefficient gradients) against autograd through the
-   plain forward at one shape;
+   from ``s2gp_uv_jac`` at random in-range poses; and K4
+   (``projline_sample_forward``) and K5 (``projline_sample_backward``) at
+   each flagship G2SP level, lines from ``g2sp_P`` with the default K.
+   Each against its plain PyTorch version on the card; kernel and plain
+   times (CUDA events, warmed up, L2 flushed before every launch, as the
+   solver finds the map cold) beside the least time the card could take
+   (bytes and operations this run's data needs, H100 SXM peaks); and the
+   whole VJP of each sampler (K2/K3, K4/K5 and their coefficient
+   gradients) against autograd through the plain forward at one shape;
 2. main_path: ``Localizer(Config(), random_init=True, batch_size=8)``
-   predicts 20 batches of seeded random images in one timed call; the K1
-   launch count must be exactly 15 per batch, and K2 is never launched;
-   frames/s, ms/batch, the feature/solver split; the first-round moments of
-   every level from kernel vs plain on the real features; and the
-   trajectory of the card against a CPU run of the port at batch 2 (with
-   TF32 convolutions as a known perturbation beside it);
+   predicts 20 batches of seeded random images in one timed call; K1 must
+   launch exactly 15 times per batch and no other kernel; frames/s,
+   ms/batch, the feature/solver split; the first-round moments of every
+   level from kernel vs plain on the real features; and the trajectory of
+   the card against a CPU run of the port at batch 2 (with TF32
+   convolutions as a known perturbation beside it);
 3. profile: device time by kernel over one batch's forward
    (torch.profiler; the table goes to chiprun_out/profile_eval_b8.txt),
    the device's busy share (the union of kernel intervals) and idle share,
@@ -29,15 +31,21 @@ Builds the hand-written kernels from the sources in the checkout, then:
 4. train: ``create_train_state`` and ``make_train_step`` at full width,
    batch 8, on seeded random images and gt poses: one warm-up step, then
    one timed window of ``TRAIN_STEPS`` steps that must launch K2 and K3
-   exactly 15 times each per step (and K1 never); steps/s, images/s,
-   ms/step, a forward / backward / optimizer split, peak memory, the first
-   and last loss; then one step of the card against a CPU run of the port
-   at batch 2 on the initial weights and the same data: end to end, the
-   solver alone and the networks alone, each beside a known perturbation
-   (``card_vs_cpu``);
+   exactly 15 times each per step (and no other kernel); steps/s,
+   images/s, ms/step, a forward / backward / optimizer split, peak memory,
+   the first and last loss; then one step of the card against a CPU run
+   of the port at batch 2 on the initial weights and the same data: end to
+   end, the solver alone and the networks alone, each beside a known
+   perturbation (``card_vs_cpu``);
 5. profile_train: device time by kernel over one train step (the table
    goes to chiprun_out/profile_train_b8.txt), busy and idle share,
-   convolution, K2 and K3 device time.
+   convolution, K2 and K3 device time;
+6. g2sp_main_path, profile_g2sp, g2sp_train, profile_g2sp_train: the same
+   for KITTI G2SP (``Config(direction="G2SP")``, the default K): serving
+   ``G2SP_BATCHES`` batches with exactly 15 K4 launches per batch, and
+   ``G2SP_TRAIN_STEPS`` train steps with exactly 15 K4 and 15 K5 launches
+   per step, each against a CPU run of the port at batch 2 (tables in
+   chiprun_out/profile_g2sp_eval_b8.txt and profile_g2sp_train_b8.txt).
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last three lines are
@@ -47,6 +55,7 @@ the kernel table, the card's name and power limit, and ``{"ok": true,
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -79,10 +88,22 @@ TRAIN_TOL = {("end_to_end", "loss_rel_err"): 7e-4,
              ("solver_only", "feature_grad_rel_l2_max"): 0.5,
              ("nets_only", "grad_rel_l2_max"): 1e-2,
              ("nets_only", "grad_rel_l2_all"): 5e-3}
+# G2SP, card vs CPU (see PERF.md section 6): the round-1 pose of
+# serving, and one train step at batch 2 in the three parts of TRAIN_TOL;
+# each limit sits between the reading and a known perturbation
+G2SP_ROUND1_TOL = 1e-5
+G2SP_TRAIN_TOL = {("end_to_end", "loss_rel_err"): 1e-5,
+                  ("end_to_end", "grad_rel_l2_all"): 1e-2,
+                  ("solver_only", "loss_rel_err"): 1e-5,
+                  ("solver_only", "feature_grad_rel_l2_max"): 0.1,
+                  ("nets_only", "grad_rel_l2_max"): 1e-2,
+                  ("nets_only", "grad_rel_l2_all"): 5e-3}
 BATCH = 8
 N_BATCHES = 20         # one timed window of several seconds
 TRAIN_STEPS = 10       # the timed train window
 TRAIN_CHECK_BATCH = 2  # card vs CPU train step
+G2SP_BATCHES = 10      # the G2SP serving window
+G2SP_TRAIN_STEPS = 5   # the G2SP train window
 
 
 def emit(obj):
@@ -127,23 +148,25 @@ def moment_error(got, want):
     return float(err.max()), rel, ok
 
 
-def line_stats(torch, coefs, A, W):
-    """(map cells the kept samples' corners touch, kept samples) of these
-    lines, with the kernels' sampling rule."""
-    B = coefs.shape[0]
-    u = torch.arange(W, device=coefs.device, dtype=torch.float32)
-    x = coefs[..., 0:1] + coefs[..., 1:2] * u
-    y = coefs[..., 2:3] + coefs[..., 3:4] * u
-    x0, y0 = torch.floor(x), torch.floor(y)
-    keep = ((x >= 0) & (x <= A - 1) & (y >= 0) & (y <= A - 1)
-            & (x0 < A - 1) & (y0 < A - 1))
-    b = torch.arange(B, device=coefs.device)[:, None, None].expand_as(x)[keep]
-    xi, yi = x0[keep].long(), y0[keep].long()
-    touched = torch.zeros(B, A, A, dtype=torch.bool, device=coefs.device)
+def cell_stats(torch, cells, AY, AX):
+    """Of the bilinear cells (x0, y0, fx, fy, m) of a kernel's samples, with
+    its sampling rule: (map cells the kept samples' corners touch, kept
+    samples, the most kept samples whose corner (y0, x0) is one map cell,
+    and the mean over the cells that hold any).  The last two say how many
+    atomic adds of the backward kernels meet on one address."""
+    x0, y0, _, _, m = cells
+    keep = m > 0
+    B = x0.shape[0]
+    b = torch.arange(B, device=x0.device)[:, None, None].expand_as(x0)[keep]
+    xi, yi = x0[keep], y0[keep]
+    touched = torch.zeros(B, AY, AX, dtype=torch.bool, device=x0.device)
     for dy in (0, 1):
         for dx in (0, 1):
             touched[b, yi + dy, xi + dx] = True
-    return int(touched.sum()), int(keep.sum())
+    hits = torch.bincount((b * AY + yi) * AX + xi, minlength=B * AY * AX)
+    held = hits[hits > 0]
+    return (int(touched.sum()), int(keep.sum()), int(hits.max()),
+            float(held.float().mean()) if held.numel() else 0.0)
 
 
 def bound(nbytes, flops):
@@ -153,14 +176,15 @@ def bound(nbytes, flops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def k1_bound(torch, sat_k, grd, mask, coefs, bf16_map):
+def k1_bound(torch, bw, sat_k, grd, mask, coefs, bf16_map):
     """Least time (ms) for K1's work on these inputs, and what bounds it:
     bytes of every input element the function needs (the map corners the
     kept samples touch, the target rows under a nonzero ray mask, mask, uv
     endpoints) and the output, against the flops of this run's samples."""
     B, A, _, C = sat_k.shape
     V, W = mask.shape
-    touched, n_keep = line_stats(torch, coefs, A, W)
+    touched, n_keep, _, _ = cell_stats(torch, bw._line_cells(coefs, W, A),
+                                       A, A)
     live = int((mask != 0).sum()) * B
     elsize = 2 if bf16_map else 4
     nbytes = (touched * C * elsize + live * C * 4
@@ -183,13 +207,40 @@ def max_error(got, want, tol):
     return abs_err, rel_err, ok
 
 
+def _counters():
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+    return {"k1": bw.banded_moments, "k2": bw.banded_sample,
+            "k3": bw.banded_sample_backward,
+            "k4": tpl.projline_sample_forward,
+            "k5": tpl.projline_sample_backward}
+
+
+def reset_launches():
+    """Set every kernel's launch count to 0."""
+    for fn in _counters().values():
+        fn.launches = 0
+
+
+def expect_launches(what, expected):
+    """Every kernel's launch count since ``reset_launches``; fails unless
+    the kernels in ``expected`` launched exactly that often and the others
+    never."""
+    got = {k: fn.launches for k, fn in _counters().items()}
+    want = {k: expected.get(k, 0) for k in got}
+    if got != want:
+        fail(f"{what} launched the kernels {got} times, expected {want}")
+    return got
+
+
 def sampler_checks(torch, bw, sat_k, coefs, W, gen, flush, slot):
     """K2 and K3 on the map and lines of one flagship shape, each against
     its plain version on the card, timed beside its bound.  Returns the two
     kernel_check rows."""
     B, A, _, C = sat_k.shape
     V = coefs.shape[1]
-    touched, n_keep = line_stats(torch, coefs, A, W)
+    touched, n_keep, max_hits, mean_hits = cell_stats(
+        torch, bw._line_cells(coefs, W, A), A, A)
     shape = dict(B=B, A=A, C=C, V=V, W=W)
     out_bytes = B * V * W * C * 4
 
@@ -237,7 +288,8 @@ def sampler_checks(torch, bw, sat_k, coefs, W, gen, flush, slot):
               plain_ms=time_cuda(
                   torch, lambda: bw.banded_sample_backward_reference(
                       coefs, *cts, A), flush, iters=5),
-              bytes=nbytes, flops=flops, kept_samples=n_keep)
+              bytes=nbytes, flops=flops, kept_samples=n_keep,
+              samples_per_cell_max=max_hits, samples_per_cell_mean=mean_hits)
     k3["bound_ms"], k3["bound_by"] = bound(nbytes, flops)
     emit(k3)
     if not ok3:
@@ -322,8 +374,8 @@ def phase_kernels(torch, dev, flush):
                                            bf16_map=True)
         torch.cuda.synchronize()
         abs_err, rel_err, ok = moment_error(got, want)
-        bound_ms, bound_by, nbytes, flops = k1_bound(torch, sat_k, grd, mask,
-                                                     coefs, True)
+        bound_ms, bound_by, nbytes, flops = k1_bound(torch, bw, sat_k, grd,
+                                                     mask, coefs, True)
         row = dict(phase="kernel_check", kernel="banded_moments", slot=slot,
                    shape=dict(B=BATCH, A=A, C=C, V=V, W=W, RB=RB),
                    max_abs_err=abs_err, max_rel_err=rel_err,
@@ -355,6 +407,156 @@ def phase_kernels(torch, dev, flush):
     return rows
 
 
+def g2sp_lines(torch, cfg, slot, pose, camera_k):
+    """(A, AY, AX, j0, coefs [B, A-j0, 16]) of the G2SP lines of one level
+    at these poses, as ``LMG2SP._solver_round`` packs them."""
+    from highlyaccurate_tpu_torch.geometry import kitti as geom
+    from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+    A = cfg.sat_size >> (3 - slot)
+    AY, AX = _level_hw(cfg, slot)
+    ranges = (cfg.rotation_range, cfg.shift_range_lat, cfg.shift_range_lon)
+    j0 = geom.g2sp_inview_col_start(A, AY, AX, *ranges)
+    xyz1 = torch.from_numpy(geom.warp_sat2real(A)[:, j0:]).to(pose.device)
+    P = geom.g2sp_P(pose, camera_k, AY, AX, cfg.grd_h, cfg.grd_w, *ranges)
+
+    def project(X):
+        return (P[:, None, :, :] * X[None, :, None, :]).sum(-1)
+
+    h0, dh = project(xyz1[0]), project(xyz1[1] - xyz1[0])
+    return A, AY, AX, j0, h0, dh, tpl.pack_projline_coefs(h0, dh, AY, AX,
+                                                          AY, A)
+
+
+def projline_checks(torch, tpl, grd_k, coefs, W, gen, flush, slot):
+    """K4 and K5 on the ground map and lines of one flagship G2SP level,
+    each against its plain version on the card, timed beside its bound.
+    K4 is timed as serving launches it (out, dx, dy) and, for training,
+    with dxy.  Returns the two kernel_check rows."""
+    B, AY, AX, C = grd_k.shape
+    V = coefs.shape[1]
+    touched, n_keep, max_hits, mean_hits = cell_stats(
+        torch, tpl._projline_cells(coefs, W, AY, AX), AY, AX)
+    shape = dict(B=B, AY=AY, AX=AX, C=C, V=V, W=W)
+    out_bytes = B * V * W * C * 4
+
+    got = tpl.projline_sample_forward(grd_k, coefs, W, with_dxy=True)
+    want = tpl.projline_sample_reference(grd_k, coefs, W, with_dxy=True)
+    torch.cuda.synchronize()
+    abs4, rel4, ok4 = max_error(got, want, SAMPLER_TOL)
+    del got, want
+    # the map corners the kept samples touch, coefs, the outputs written
+    in_bytes = touched * C * grd_k.element_size() + coefs.numel() * 4
+    k4 = dict(phase="kernel_check", kernel="projline_sample", slot=slot,
+              shape=shape, outputs="out, dx, dy (and dxy)",
+              max_abs_err=abs4, max_rel_err=rel4,
+              tol=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6 per output",
+              within_tol=ok4,
+              ms=time_cuda(torch, lambda: tpl.projline_sample_forward(
+                  grd_k, coefs, W, with_dxy=False), flush),
+              plain_ms=time_cuda(torch, lambda: tpl.projline_sample_reference(
+                  grd_k, coefs, W, False), flush, iters=5),
+              ms_dxy=time_cuda(torch, lambda: tpl.projline_sample_forward(
+                  grd_k, coefs, W, with_dxy=True), flush),
+              bytes=in_bytes + 3 * out_bytes,
+              flops=(K2_FLOPS_KEPT - 3) * n_keep * C,
+              bytes_dxy=in_bytes + 4 * out_bytes,
+              flops_dxy=K2_FLOPS_KEPT * n_keep * C, kept_samples=n_keep,
+              samples=B * V * W)
+    k4["bound_ms"], k4["bound_by"] = bound(k4["bytes"], k4["flops"])
+    k4["bound_ms_dxy"], _ = bound(k4["bytes_dxy"], k4["flops_dxy"])
+    emit(k4)
+    if not ok4:
+        fail(f"K4 disagrees with its plain version at slot {slot}: "
+             f"max abs {abs4}, max rel {rel4}")
+
+    cts = torch.randn(3, B, V, W, C, generator=gen, device=grd_k.device)
+    got = tpl.projline_sample_backward(coefs, *cts, AY, AX)
+    want = tpl.projline_sample_backward_reference(coefs, *cts, AY, AX)
+    torch.cuda.synchronize()
+    abs5, rel5, ok5 = max_error([got], [want], SAMPLER_TOL)
+    del got, want
+    # the kept samples' three cotangents, coefs, the gradient written
+    nbytes = 3 * n_keep * C * 4 + coefs.numel() * 4 + B * AY * AX * C * 4
+    flops = K3_FLOPS_KEPT * n_keep * C
+    k5 = dict(phase="kernel_check", kernel="projline_sample_backward",
+              slot=slot, shape=shape, max_abs_err=abs5, max_rel_err=rel5,
+              tol=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6 (fp32 "
+              "atomics: each map cell's sum in a run-dependent order)",
+              within_tol=ok5,
+              ms=time_cuda(torch, lambda: tpl.projline_sample_backward(
+                  coefs, *cts, AY, AX), flush),
+              plain_ms=time_cuda(
+                  torch, lambda: tpl.projline_sample_backward_reference(
+                      coefs, *cts, AY, AX), flush, iters=5),
+              bytes=nbytes, flops=flops, kept_samples=n_keep,
+              samples_per_cell_max=max_hits, samples_per_cell_mean=mean_hits)
+    k5["bound_ms"], k5["bound_by"] = bound(nbytes, flops)
+    emit(k5)
+    if not ok5:
+        fail(f"K5 disagrees with its plain version at slot {slot}: "
+             f"max abs {abs5}, max rel {rel5}")
+    return k4, k5
+
+
+def projline_vjp_check(torch, tpl, grd, h0, dh, W, gen):
+    """The projective-line sampler's whole VJP (K4 with dxy, K5 and the
+    coefficient gradients, through ``pack_projline_coefs``) against
+    autograd through the plain forward, on a bf16-exact fp32 map (so the
+    cast inside the function changes nothing)."""
+    AY, AX = grd.shape[1:3]
+    leaves = [t.detach().requires_grad_() for t in
+              (grd.to(torch.bfloat16).float(), h0, dh)]
+    cts = torch.randn(3, grd.shape[0], h0.shape[1], W, grd.shape[3],
+                      generator=gen, device=grd.device)
+
+    def grads(sample):
+        coefs = tpl.pack_projline_coefs(leaves[1], leaves[2], AY, AX, AY, W)
+        loss = sum((o * c).sum() for o, c in zip(sample(coefs), cts))
+        return torch.autograd.grad(loss, leaves)
+
+    got = grads(lambda c: tpl.projline_sample(leaves[0], c, W=W))
+    want = grads(lambda c: tpl.projline_sample_reference(leaves[0], c, W,
+                                                         False))
+    errs = {}
+    for name, g, w in zip(("map", "h0", "dh"), got, want):
+        err, scale = float((g - w).abs().max()), float(w.abs().max())
+        errs[name] = dict(max_abs_err=err, max_rel_err=err / max(scale, 1e-30))
+        if err > VJP_TOL * scale:
+            fail(f"projline VJP: d/d{name} differs from autograd by {err} "
+                 f"(max {scale})")
+    return errs
+
+
+def phase_g2sp_kernels(torch, dev, flush):
+    """K4 and K5 at the three flagship G2SP levels (lines from ``g2sp_P``
+    at random in-range poses with the default K), and the projective-line
+    VJP at the middle one."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+
+    cfg = Config(direction="G2SP")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    k = torch.from_numpy(_scaled_default_k(cfg)).to(dev).expand(BATCH, 3, 3)
+    rows = {"projline_sample": [], "projline_sample_backward": []}
+    for slot, C in zip((0, 1, 2), (256, 128, 64)):
+        pose = torch.rand(BATCH, 3, generator=gen, device=dev) * 2 - 1
+        A, AY, AX, j0, h0, dh, coefs = g2sp_lines(torch, cfg, slot, pose, k)
+        grd = torch.randn(BATCH, AY, AX, C, generator=gen, device=dev)
+        k4, k5 = projline_checks(torch, tpl, grd.to(torch.bfloat16), coefs,
+                                 A, gen, flush, slot)
+        k4["shape"]["j0"] = k5["shape"]["j0"] = j0
+        rows["projline_sample"].append(k4)
+        rows["projline_sample_backward"].append(k5)
+        if slot == 1:
+            emit(dict(phase="projline_vjp", slot=slot, shape=k4["shape"],
+                      map="bf16-exact float32", tol=f"|err| <= {VJP_TOL} * max",
+                      grads=projline_vjp_check(torch, tpl, grd, h0, dh, A,
+                                               gen)))
+    return rows
+
+
 def phase_main_path(torch, dev):
     from highlyaccurate_tpu_torch import Config
     from highlyaccurate_tpu_torch.geometry.kitti import s2gp_uv_jac
@@ -375,19 +577,14 @@ def phase_main_path(torch, dev):
     loc.predict(sat[:BATCH], grd[:BATCH])  # warm-up (cuDNN algorithm pick)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    bw.banded_moments.launches = 0
-    bw.banded_sample.launches = 0
+    reset_launches()
     t0 = time.perf_counter()
     out = loc.predict(sat, grd)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = bw.banded_moments.launches
     per_batch = cfg.N_iters * n_levels
-    if launches != per_batch * N_BATCHES:
-        fail(f"K1 launched {launches} times for {N_BATCHES} batches, "
-             f"expected {per_batch} per batch")
-    if bw.banded_sample.launches:
-        fail(f"serving launched K2 {bw.banded_sample.launches} times")
+    launches = expect_launches("S2GP serving",
+                               {"k1": per_batch * N_BATCHES})["k1"]
     for k, v in out.items():
         if v.shape != (n,) or not np.isfinite(v).all():
             fail(f"{k}: shape {v.shape} or non-finite values")
@@ -546,11 +743,25 @@ def rel_l2(got, want):
     return float((got - want).norm() / want.norm().clamp_min(1e-30))
 
 
-def train_grads(torch, model, sat, grd, gt, generator):
+def s2gp_loss(model, batch, generator):
+    """The S2GP training forward on batch = (sat, grd, gt)."""
+    sat, grd, gt = batch
+    return model(sat, grd, mode="train", gt_pose=gt, generator=generator)
+
+
+def g2sp_loss(model, batch, generator):
+    """The G2SP training forward on batch = (sat, grd, camera_k, gt); G2SP
+    never re-inits, so it takes no generator."""
+    del generator
+    sat, grd, camera_k, gt = batch
+    return model(sat, grd, camera_k, mode="train", gt_pose=gt)
+
+
+def train_grads(torch, model, loss_of, batch, generator):
     """Loss and every parameter's gradient (None: no gradient) of one
     training forward and backward, without an optimizer step."""
     model.zero_grad(set_to_none=True)
-    out = model(sat, grd, mode="train", gt_pose=gt, generator=generator)
+    out = loss_of(model, batch, generator)
     out.loss.backward()
     return float(out.loss.detach()), {k: None if p.grad is None
                              else p.grad.detach().float().cpu()
@@ -563,15 +774,14 @@ def feature_maps(model, sat, grd):
     return [*sf, *gf]
 
 
-def solver_grads(torch, model, feats, sat, grd, gt, generator):
+def solver_grads(torch, model, feats, loss_of, batch, generator):
     """The loss of the solver rounds on the given feature maps (the
     networks bypassed) and its gradient with respect to each map."""
     leaves = [f.detach().requires_grad_() for f in feats]
     n = len(leaves) // 2
     model.extract_features = lambda s, g: (leaves[:n], None, leaves[n:], None)
     try:
-        loss = model(sat, grd, mode="train", gt_pose=gt,
-                     generator=generator).loss
+        loss = loss_of(model, batch, generator).loss
     finally:
         del model.extract_features
     return (float(loss.detach()),
@@ -602,30 +812,30 @@ def grad_errors(torch, grads, ref):
                     torch.cat([g.flatten() for g in ref.values()])))
 
 
-def card_vs_cpu(torch, cfg, weights, args, dev):
+def card_vs_cpu(torch, family, cfg, weights, batch, dev, loss_of,
+                plain_kernels):
     """One train step of the card against a CPU run of the port, on the
     same weights and data, each part beside a known perturbation for
     scale:
     * end to end: the loss and every parameter's gradient (and with TF32
       convolutions);
     * the solver alone on the CPU's feature maps: the loss and the feature
-      gradients (and the card with K2 / K3's plain versions in place of
-      the kernels, which differ from them in the last bits only);
+      gradients (and the card with the sampler kernels' plain versions in
+      place of the kernels, which differ from them in the last bits only:
+      ``plain_kernels`` is a context manager that swaps them in);
     * the networks alone under the CPU's feature gradients: every
       parameter's gradient (and with TF32 convolutions)."""
-    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
-    from highlyaccurate_tpu_torch.ops import banded_warp as bw
-    cpu = LMS2GP(cfg, device="cpu")
+    cpu = family(cfg, device="cpu")
     cpu.load_state_dict(weights)
-    card = LMS2GP(cfg, device=dev)
+    card = family(cfg, device=dev)
     card.load_state_dict(weights)
-    sat, grd, gt = args
-    cargs = [t.cpu() for t in args]
+    sat, grd = batch[:2]
+    cbatch = [t.cpu() for t in batch]
     t0 = time.perf_counter()
-    feats_c = feature_maps(cpu, *cargs[:2])
-    loss_c, fg_c = solver_grads(torch, cpu, feats_c, *cargs,
+    feats_c = feature_maps(cpu, *cbatch[:2])
+    loss_c, fg_c = solver_grads(torch, cpu, feats_c, loss_of, cbatch,
                                 torch.Generator().manual_seed(0))
-    pg_c = {k: g for k, g in net_grads(torch, cpu, *cargs[:2], fg_c).items()
+    pg_c = {k: g for k, g in net_grads(torch, cpu, *cbatch[:2], fg_c).items()
             if g is not None}
     cpu_s = time.perf_counter() - t0
 
@@ -633,7 +843,7 @@ def card_vs_cpu(torch, cfg, weights, args, dev):
         return torch.Generator(device=dev).manual_seed(0)
 
     def end_to_end():
-        loss, grads = train_grads(torch, card, sat, grd, gt, gen())
+        loss, grads = train_grads(torch, card, loss_of, batch, gen())
         return dict(loss_rel_err=abs(loss - loss_c) / abs(loss_c),
                     **grad_errors(torch, grads, pg_c))
 
@@ -649,7 +859,7 @@ def card_vs_cpu(torch, cfg, weights, args, dev):
 
     def solver_only(ref_loss, ref_grads):
         loss, grads = solver_grads(torch, card, [f.to(dev) for f in feats_c],
-                                   sat, grd, gt, gen())
+                                   loss_of, batch, gen())
         return loss, grads, dict(
             loss_rel_err=abs(loss - ref_loss) / abs(ref_loss),
             feature_grad_rel_l2_max=max(
@@ -659,16 +869,48 @@ def card_vs_cpu(torch, cfg, weights, args, dev):
                end_to_end=end_to_end(), end_to_end_tf32=tf32(end_to_end),
                nets_only=nets_only(), nets_only_tf32=tf32(nets_only))
     loss_s, fg_g, row["solver_only"] = solver_only(loss_c, fg_c)
+    with plain_kernels():
+        row["solver_only_kernels_vs_plain"] = solver_only(loss_s, fg_g)[2]
+    return row
+
+
+@contextlib.contextmanager
+def plain_k2_k3():
+    """K2 / K3's plain versions in place of the kernels."""
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
     kernels = bw.banded_sample_forward, bw.banded_sample_backward
     bw.banded_sample_forward = (lambda sat_k, coefs, W, *, with_dxy:
                                 bw.banded_sample_reference(sat_k, coefs, W,
                                                            with_dxy))
     bw.banded_sample_backward = bw.banded_sample_backward_reference
     try:
-        row["solver_only_kernels_vs_plain"] = solver_only(loss_s, fg_g)[2]
+        yield
     finally:
         bw.banded_sample_forward, bw.banded_sample_backward = kernels
-    return row
+
+
+@contextlib.contextmanager
+def plain_k4_k5():
+    """K4 / K5's plain versions in place of the kernels."""
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+    kernels = tpl.projline_sample_forward, tpl.projline_sample_backward
+    tpl.projline_sample_forward = (lambda grd_k, coefs, W, *, with_dxy:
+                                   tpl.projline_sample_reference(
+                                       grd_k, coefs, W, with_dxy))
+    tpl.projline_sample_backward = tpl.projline_sample_backward_reference
+    try:
+        yield
+    finally:
+        tpl.projline_sample_forward, tpl.projline_sample_backward = kernels
+
+
+def check_limits(what, row, limits):
+    """Fail unless every (part, reading) of ``row`` is within its limit."""
+    failed = [f"{part} {key} {row[part][key]} > {tol}"
+              for (part, key), tol in limits.items()
+              if not row[part][key] <= tol]
+    if failed:
+        fail(f"{what}, card vs CPU: " + "; ".join(failed))
 
 
 def phase_train(torch, dev):
@@ -676,7 +918,6 @@ def phase_train(torch, dev):
     through ``make_train_step``, its split, and the card against the CPU."""
     from highlyaccurate_tpu_torch import Config
     from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
-    from highlyaccurate_tpu_torch.ops import banded_warp as bw
     from highlyaccurate_tpu_torch.params import init_params
     from highlyaccurate_tpu_torch.train.state import create_train_state
     from highlyaccurate_tpu_torch.train.step import make_train_step
@@ -704,9 +945,7 @@ def phase_train(torch, dev):
     torch.cuda.synchronize()
     first_loss = float(m["loss"])
     torch.cuda.reset_peak_memory_stats()
-    bw.banded_moments.launches = 0
-    bw.banded_sample.launches = 0
-    bw.banded_sample_backward.launches = 0
+    reset_launches()
     losses = []
     t0 = time.perf_counter()
     for i in range(1, n):
@@ -714,13 +953,10 @@ def phase_train(torch, dev):
         losses.append(m["loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    k2_n, k3_n = bw.banded_sample.launches, bw.banded_sample_backward.launches
     per_step = cfg.N_iters * cfg.n_levels
-    if (k2_n, k3_n) != (per_step * TRAIN_STEPS,) * 2:
-        fail(f"K2 / K3 launched {k2_n} / {k3_n} times in {TRAIN_STEPS} "
-             f"steps, expected {per_step} each per step")
-    if bw.banded_moments.launches:
-        fail(f"training launched K1 {bw.banded_moments.launches} times")
+    counts = expect_launches("S2GP training", {
+        "k2": per_step * TRAIN_STEPS, "k3": per_step * TRAIN_STEPS})
+    k2_n, k3_n = counts["k2"], counts["k3"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [first_loss] + [float(v) for v in losses]
     if not np.isfinite(losses).all():
@@ -762,15 +998,12 @@ def phase_train(torch, dev):
     # the card against a CPU run of the port at batch 2, on the initial
     # weights and the first batch's data
     b = TRAIN_CHECK_BATCH
-    row = card_vs_cpu(torch, cfg, weights, (sat[0, :b], grd[0, :b],
-                                            gt[0, :b]), dev)
+    row = card_vs_cpu(torch, LMS2GP, cfg, weights,
+                      (sat[0, :b], grd[0, :b], gt[0, :b]), dev, s2gp_loss,
+                      plain_k2_k3)
     emit(dict(phase="train_card_vs_cpu", batch=b, **row, limits={
         f"{part}.{key}": tol for (part, key), tol in TRAIN_TOL.items()}))
-    failed = [f"{part} {key} {row[part][key]} > {tol}"
-              for (part, key), tol in TRAIN_TOL.items()
-              if not row[part][key] <= tol]
-    if failed:
-        fail("train step, card vs CPU: " + "; ".join(failed))
+    check_limits("train step", row, TRAIN_TOL)
     return dict(k2_launches=k2_n, k3_launches=k3_n, ms_per_step=step_ms,
                 per_step=per_step,
                 model=model, state=state, step=step,
@@ -805,6 +1038,259 @@ def phase_profile_train(torch, train):
         fail(f"profiled step shows {k2_n} K2 and {k3_n} K3 kernels")
 
 
+def phase_g2sp_main_path(torch, dev):
+    """G2SP serving at full width: ``Localizer(Config(direction="G2SP"))``
+    with the default K predicts a window of seeded batches (K4 exactly 15
+    times per batch, no other kernel); the first-round K4 samples of every
+    level on the real features against the plain version; the trajectory
+    of the card against a CPU run of the port at batch 2."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.inference import Localizer
+    from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
+    from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+
+    cfg = Config(direction="G2SP")
+    k = _scaled_default_k(cfg)
+    t0 = time.perf_counter()
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                    camera_k=k)
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(2)
+    n = BATCH * G2SP_BATCHES
+    sat = (rng.rand(n, cfg.sat_size, cfg.sat_size, 3) * 255).astype(np.uint8)
+    grd = (rng.rand(n, cfg.grd_h, cfg.grd_w, 3) * 255).astype(np.uint8)
+
+    loc.predict(sat[:BATCH], grd[:BATCH])  # warm-up (cuDNN algorithm pick)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    out = loc.predict(sat, grd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_batch = cfg.N_iters * cfg.n_levels
+    launches = expect_launches("G2SP serving",
+                               {"k4": per_batch * G2SP_BATCHES})["k4"]
+    for key, v in out.items():
+        if v.shape != (n,) or not np.isfinite(v).all():
+            fail(f"G2SP {key}: shape {v.shape} or non-finite values")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    model = loc.model
+    s8 = torch.from_numpy(sat[:BATCH].astype(np.float32) / 255.0).to(dev)
+    g8 = torch.from_numpy(grd[:BATCH].astype(np.float32) / 255.0).to(dev)
+    k8 = torch.from_numpy(k).to(dev).expand(BATCH, 3, 3).contiguous()
+    flush = torch.empty(1, device=dev)
+    with torch.no_grad():
+        feat_ms = time_cuda(torch, lambda: model.extract_features(s8, g8),
+                            flush, iters=5, warm=1)
+        full_ms = time_cuda(torch, lambda: model(s8, g8, k8, mode="test"),
+                            flush, iters=5, warm=1)
+
+        # first-round samples of every level, kernel vs plain, real features
+        sf, _, gf, _ = model.extract_features(s8, g8)
+        pose0 = torch.zeros(BATCH, 3, device=dev)
+        s_err = []
+        for lvl, slot in enumerate(model._slots):
+            A, _, _, _, _, _, coefs = g2sp_lines(torch, cfg, slot, pose0, k8)
+            grd_k = gf[lvl].to(torch.bfloat16)
+            got = tpl.projline_sample_forward(grd_k, coefs, A,
+                                              with_dxy=False)
+            want = tpl.projline_sample_reference(grd_k, coefs, A, False)
+            abs_err, rel_err, ok = max_error(got, want, SAMPLER_TOL)
+            if not ok:
+                fail(f"G2SP first-round samples disagree at level {lvl}: "
+                     f"{abs_err} abs, {rel_err} rel")
+            s_err.append(dict(level=lvl, max_abs_err=abs_err,
+                              max_rel_err=rel_err))
+
+        cpu = LMG2SP(cfg, device="cpu")
+        cpu.load_state_dict({key: v.cpu()
+                             for key, v in model.state_dict().items()})
+        t0 = time.perf_counter()
+        tc = cpu(s8[:2].cpu(), g8[:2].cpu(), k8[:2].cpu(), mode="trajectory")
+        cpu_s = time.perf_counter() - t0
+
+        def card_traj():
+            return model(s8[:2], g8[:2], k8[:2], mode="trajectory")
+        tg = card_traj()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tt = card_traj()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    tc, tg, tt = (torch.stack(t, -1).cpu().numpy() for t in (tc, tg, tt))
+    if not all(np.isfinite(t).all() for t in (tc, tg, tt)):
+        fail("non-finite G2SP trajectory")
+    d = np.abs(tg - tc)
+    round1 = float(d[:, 0, 0].max())
+    round1_tf32 = float(np.abs(tt - tc)[:, 0, 0].max())
+    if round1 > G2SP_ROUND1_TOL:
+        fail(f"G2SP round-1 pose differs between card and CPU by {round1}")
+    row = dict(
+        phase="g2sp_main_path", config="KITTI G2SP geo LM, sat 512, grd "
+        "256x1024, level 3, N_iters 5, default K, fp32 features, bf16 map, "
+        "TF32 off", batch=BATCH, batches=G2SP_BATCHES, images=n,
+        wall_s=wall, frames_per_s=n / wall,
+        ms_per_batch=wall / G2SP_BATCHES * 1e3, k4_launches=launches,
+        k4_launches_per_batch=launches // G2SP_BATCHES,
+        features_ms_per_batch=feat_ms, forward_ms_per_batch=full_ms,
+        solver_ms_per_batch=full_ms - feat_ms, peak_mem_gb=peak_gb,
+        init_s=init_s, col_start=model._col_start,
+        first_round_samples=s_err,
+        traj_card_vs_cpu=dict(batch=2, round1_max_abs=round1,
+                              all_rounds_max_abs=float(d.max()),
+                              round1_tol=G2SP_ROUND1_TOL,
+                              round1_max_abs_tf32_convs=round1_tf32,
+                              cpu_s=cpu_s),
+        lateral_m_first=out["lateral_m"][:4].tolist())
+    emit(row)
+    return row, model, (s8, g8, k8)
+
+
+def phase_g2sp_profile(torch, model, batch, forward_ms):
+    """Device time by kernel over one G2SP batch's forward."""
+    table = "chiprun_out/profile_g2sp_eval_b8.txt"
+    with torch.no_grad():
+        wall_ms, busy_ms, kernels, prof = profiled(
+            torch, lambda: model(*batch, mode="test"), table)
+    k4_ms, k4_n = device_ms(kernels, "projline_sample_kernel")
+    emit(dict(phase="profile_g2sp", wall_ms=wall_ms, device_busy_ms=busy_ms,
+              device_kernel_ms_sum=sum(e.device_time_total
+                                       for e in kernels) / 1e3,
+              device_idle_share=1 - busy_ms / wall_ms,
+              device_idle_share_unprofiled=1 - busy_ms / forward_ms,
+              device_kernels=len(kernels),
+              conv_device_ms=conv_device_ms(prof, ("aten::cudnn_convolution",)),
+              k4_device_ms=k4_ms, k4_launches=k4_n, table=table))
+    if k4_n != model.cfg.N_iters * model.cfg.n_levels:
+        fail(f"profiled G2SP forward shows {k4_n} K4 kernels")
+
+
+def phase_g2sp_train(torch, dev):
+    """The G2SP training step at full width, batch 8, through
+    ``make_train_step(model, cfg)`` with the default K: a timed window (K4
+    and K5 exactly 15 times each per step, no other kernel), its split,
+    and the card against the CPU."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
+    from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
+    from highlyaccurate_tpu_torch.params import init_params
+    from highlyaccurate_tpu_torch.train.state import create_train_state
+    from highlyaccurate_tpu_torch.train.step import make_train_step
+
+    cfg = Config(direction="G2SP")
+    t0 = time.perf_counter()
+    model = LMG2SP(cfg, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    weights = {key: v.detach().cpu().clone()
+               for key, v in model.state_dict().items()}
+    state = create_train_state(cfg, model)
+    step = make_train_step(model, cfg)
+    init_s = time.perf_counter() - t0
+    rng = np.random.RandomState(3)
+    n = G2SP_TRAIN_STEPS + 1
+    sat = torch.from_numpy((rng.rand(n, BATCH, cfg.sat_size, cfg.sat_size, 3)
+                            * 255).astype(np.uint8)).to(dev).float() / 255.0
+    grd = torch.from_numpy((rng.rand(n, BATCH, cfg.grd_h, cfg.grd_w, 3)
+                            * 255).astype(np.uint8)).to(dev).float() / 255.0
+    gt = torch.from_numpy(rng.uniform(-1, 1, (n, BATCH, 3)).astype(
+        np.float32)).to(dev)
+    k = torch.from_numpy(_scaled_default_k(cfg)).to(dev).expand(
+        BATCH, 3, 3).contiguous()
+
+    state, m = step(state, sat[0], grd[0], k, gt[0], None)  # warm-up
+    torch.cuda.synchronize()
+    first_loss = float(m["loss"])
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    losses = []
+    t0 = time.perf_counter()
+    for i in range(1, n):
+        state, m = step(state, sat[i], grd[i], k, gt[i], None)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = cfg.N_iters * cfg.n_levels
+    counts = expect_launches("G2SP training", {
+        "k4": per_step * G2SP_TRAIN_STEPS, "k5": per_step * G2SP_TRAIN_STEPS})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [first_loss] + [float(v) for v in losses]
+    if not np.isfinite(losses).all():
+        fail(f"non-finite G2SP train loss: {losses}")
+    if not all(torch.isfinite(p).all() for p in model.parameters()):
+        fail("non-finite parameters after G2SP training")
+
+    opt = state.optimizer
+    spans = []
+    for i in range(3):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        opt.zero_grad(set_to_none=True)
+        ev[0].record()
+        out = model(sat[i], grd[i], k, mode="train", gt_pose=gt[i])
+        ev[1].record()
+        out.loss.backward()
+        ev[2].record()
+        opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        spans.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    fwd_ms, bwd_ms, opt_ms = np.median(np.array(spans), axis=0).tolist()
+    step_ms = wall / G2SP_TRAIN_STEPS * 1e3
+    emit(dict(
+        phase="g2sp_train", config="KITTI G2SP geo LM, sat 512, grd "
+        "256x1024, level 3, N_iters 5, default K, fp32 features, bf16 map, "
+        "TF32 off, Adam", batch=BATCH, steps=G2SP_TRAIN_STEPS, wall_s=wall,
+        steps_per_s=G2SP_TRAIN_STEPS / wall,
+        images_per_s=G2SP_TRAIN_STEPS * BATCH / wall, ms_per_step=step_ms,
+        k4_launches=counts["k4"], k5_launches=counts["k5"],
+        k4_launches_per_step=counts["k4"] // G2SP_TRAIN_STEPS,
+        k5_launches_per_step=counts["k5"] // G2SP_TRAIN_STEPS,
+        forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
+        peak_mem_gb=peak_gb, init_s=init_s, first_loss=losses[0],
+        last_loss=losses[-1], losses=losses))
+
+    b = TRAIN_CHECK_BATCH
+    row = card_vs_cpu(torch, LMG2SP, cfg, weights,
+                      (sat[0, :b], grd[0, :b], k[:b], gt[0, :b]), dev,
+                      g2sp_loss, plain_k4_k5)
+    emit(dict(phase="g2sp_train_card_vs_cpu", batch=b, **row, limits={
+        f"{part}.{key}": tol for (part, key), tol in G2SP_TRAIN_TOL.items()}))
+    check_limits("G2SP train step", row, G2SP_TRAIN_TOL)
+    return dict(k5_launches=counts["k5"], ms_per_step=step_ms,
+                per_step=per_step, model=model, state=state, step=step,
+                batch=(sat[0], grd[0], k, gt[0]))
+
+
+def phase_g2sp_profile_train(torch, train):
+    """Device time by kernel over one G2SP train step."""
+    table = "chiprun_out/profile_g2sp_train_b8.txt"
+    state = train["state"]
+
+    def one_step():
+        nonlocal state
+        state, _ = train["step"](state, *train["batch"], None)
+
+    wall_ms, busy_ms, kernels, prof = profiled(torch, one_step, table)
+    k4_ms, k4_n = device_ms(kernels, "projline_sample_kernel")
+    k5_ms, k5_n = device_ms(kernels, "projline_sample_backward_kernel")
+    emit(dict(phase="profile_g2sp_train", wall_ms=wall_ms,
+              device_busy_ms=busy_ms,
+              device_kernel_ms_sum=sum(e.device_time_total
+                                       for e in kernels) / 1e3,
+              device_idle_share=1 - busy_ms / wall_ms,
+              device_idle_share_unprofiled=1 - busy_ms / train["ms_per_step"],
+              device_kernels=len(kernels),
+              conv_device_ms=conv_device_ms(
+                  prof, ("aten::cudnn_convolution",
+                         "aten::convolution_backward")),
+              k4_device_ms=k4_ms, k4_launches=k4_n, k5_device_ms=k5_ms,
+              k5_launches=k5_n, table=table))
+    if (k4_n, k5_n) != (train["per_step"],) * 2:
+        fail(f"profiled G2SP step shows {k4_n} K4 and {k5_n} K5 kernels")
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -826,7 +1312,6 @@ def main():
         fail("torch.cuda.is_available() is false")
     try:
         from highlyaccurate_tpu_torch.ops import _build
-        from highlyaccurate_tpu_torch.ops import banded_warp as bw
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run from the "
              "repository root")
@@ -842,6 +1327,7 @@ def main():
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     shapes = phase_kernels(torch, dev, flush)
+    shapes.update(phase_g2sp_kernels(torch, dev, flush))
     del flush
     main_row, model, gen, s8, g8 = phase_main_path(torch, dev)
     phase_profile(torch, model, gen, s8, g8,
@@ -850,9 +1336,19 @@ def main():
     torch.cuda.empty_cache()
     train = phase_train(torch, dev)
     phase_profile_train(torch, train)
+    del train["model"], train["state"], train["step"], train["batch"]
+    torch.cuda.empty_cache()
+    g2sp_row, model, batch = phase_g2sp_main_path(torch, dev)
+    phase_g2sp_profile(torch, model, batch,
+                       g2sp_row["forward_ms_per_batch"])
+    del model, batch
+    torch.cuda.empty_cache()
+    g2sp_train = phase_g2sp_train(torch, dev)
+    phase_g2sp_profile_train(torch, g2sp_train)
 
-    # library_ms is null for all three: no single PyTorch call computes
-    # them (grid_sample gives neither the derivatives nor the edge quirk)
+    # library_ms is null for all five: no single PyTorch call computes
+    # them (grid_sample gives neither the derivatives, nor the edge quirk,
+    # nor the in-front mask of the projective lines)
     emit({"kernels": [
         kernel_entry("banded_moments", "banded_moments.cu", 704,
                      main_row["k1_launches"], shapes["banded_moments"]),
@@ -860,6 +1356,11 @@ def main():
                      train["k2_launches"], shapes["banded_sample"]),
         kernel_entry("banded_sample_backward", "banded_sampler.cu", 1147,
                      train["k3_launches"], shapes["banded_sample_backward"]),
+        kernel_entry("projline_sample", "projline_sampler.cu", 1821,
+                     g2sp_row["k4_launches"], shapes["projline_sample"]),
+        kernel_entry("projline_sample_backward", "projline_sampler.cu", 1963,
+                     g2sp_train["k5_launches"],
+                     shapes["projline_sample_backward"]),
     ]})
     print(f"gpu: {gpu}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

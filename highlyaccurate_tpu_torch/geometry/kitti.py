@@ -1,16 +1,22 @@
-"""KITTI S2GP geometry (port of ``highlyaccurate_tpu/geometry/kitti.py:31-193``).
+"""KITTI geometry (port of ``highlyaccurate_tpu/geometry/kitti.py:31-193``
+for S2GP and ``:195-360`` for G2SP).
 
-Ground-plane rays are precomputed on the host in float64 numpy exactly as the
-JAX package does; the pose -> satellite-pixel projection and its closed-form
-Jacobian are torch functions of the pose on the pose's device.
+Ground-plane rays (S2GP), the ground points under satellite pixels and the
+G2SP in-view column bound are precomputed on the host in numpy exactly as
+the JAX package does; the pose -> pixel projections and their closed-form
+Jacobians are torch functions of the pose on the pose's device.
 
 Layouts follow the JAX package: pose [B, 3] = (shift_u, shift_v, heading)
 in normalized units, uv [B, H, W, 2], d(uv)/d(pose) [B, H, W, 2, 3].
 Frames: camera +x south, +y down, +z forward; satellite pixels u east,
-v south, origin at the patch's top-left.
+v south, origin at the patch's top-left.  Small products (3x3 by 3x4, a
+3x4 matrix against 4-vectors) are written as broadcast sums, so no matrix
+product (and no TF32 mode) is involved on the GPU.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import numpy as np
 import torch
@@ -142,3 +148,149 @@ def s2gp_uv_jac(pose, xyz_grd, satmap_sidelength: int, rotation_range: float,
 
     duv_dpose = torch.stack([duv_du, duv_dv, duv_dtheta], dim=-1)  # [B,H,W,2,3]
     return sat_uv, duv_dpose
+
+
+def warp_sat2real(satmap_sidelength: int) -> np.ndarray:
+    """Ground-plane point under each satellite pixel (G2SP; reference
+    models_kitti.py:54-84): XYZ1 [A(i, south), A(j, east), 4] float32
+    homogeneous world points on the Y = 0 plane.  Host numpy."""
+    i = np.arange(satmap_sidelength, dtype=np.float64)
+    ii, jj = np.meshgrid(i, i, indexing="ij")
+    u0 = v0 = satmap_sidelength // 2
+    uc, vc = jj - u0, ii - v0
+    mpp = _meter_per_pixel(satmap_sidelength)
+    X = mpp * vc   # south
+    Z = mpp * uc   # east
+    Y = np.zeros_like(X)
+    return np.stack([X, Y, Z, np.ones_like(X)], axis=-1).astype(np.float32)
+
+
+def g2sp_inview_col_start(A: int, grd_H: int, grd_W: int,
+                          rotation_range: float, shift_range_lat: float,
+                          shift_range_lon: float, margin: float = 1.5,
+                          align: int = 8, fov_slack: float = 1.1) -> int:
+    """Westmost satellite column j0 that can ever project into the ground
+    image of size grd_H x grd_W (the level's feature map) for a pose within
+    ``margin`` x the ranges: columns west of it give zero rows of the LM
+    Jacobian and are dropped.  The bound is the union over a 5^3 pose grid
+    with the default K's focal lengths divided by ``fov_slack``, a 1-px
+    image slop, a 2-px bilinear slop, aligned down to ``align``.  Host
+    numpy, the same arithmetic as the JAX package, so the same j0."""
+    k = DEFAULT_CAMERA_K.astype(np.float64).copy()
+    k[0, 0] /= fov_slack
+    k[1, 1] /= fov_slack
+    k[0, :] *= grd_W / 1024.0
+    k[1, :] *= grd_H / 256.0
+    XYZ1 = warp_sat2real(A).astype(np.float64)
+    rot_scale = rotation_range / 180.0 * np.pi
+    vals = np.array([-margin, -margin / 2, 0.0, margin / 2, margin])
+    jmin = A
+    for su, sv, th in itertools.product(vals, repeat=3):
+        heading = -th * rot_scale  # G2SP rotates by -heading (g2sp_P)
+        cos, sin = np.cos(heading), np.sin(heading)
+        R = np.array([[cos, 0.0, -sin], [0.0, 1.0, 0.0], [sin, 0.0, cos]])
+        T = np.array([[sv * shift_range_lat], [geo.CAMERA_HEIGHT],
+                      [-su * shift_range_lon]])
+        P = k @ np.concatenate([R, T], axis=1)
+        uv1 = XYZ1 @ P.T
+        front = uv1[..., 2] > 1e-6
+        den = np.maximum(uv1[..., 2], 1e-6)
+        u, v = uv1[..., 0] / den, uv1[..., 1] / den
+        inb = front & (u > -1) & (u < grd_W + 1) & (v > -1) & (v < grd_H + 1)
+        js = np.where(inb.any(axis=0))[0]
+        if len(js):
+            jmin = min(jmin, int(js.min()))
+    j0 = max(jmin - 2, 0)
+    return (j0 // align) * align
+
+
+def _scaled_k(camera_k, grd_H: int, grd_W: int, ori_grdH: int,
+              ori_grdW: int):
+    """camera_k [B, 3, 3] (for the ori_grdH x ori_grdW input) rescaled to
+    the grd_H x grd_W feature map, float32."""
+    k = camera_k.to(torch.float32)
+    scale = torch.tensor([grd_W / ori_grdW, grd_H / ori_grdH, 1.0],
+                         dtype=torch.float32, device=k.device)
+    return k * scale[:, None]
+
+
+def _rot_neg_heading(pose, rotation_range: float):
+    """cos and sin of -heading, [B] each."""
+    heading = pose[:, 2] * (rotation_range / 180.0 * np.pi)
+    return torch.cos(-heading), torch.sin(-heading)
+
+
+def _k_times(k, M):
+    """k [B, 3, 3] times M [B, 3, 4] as a broadcast sum -> [B, 3, 4]."""
+    return (k[:, :, :, None] * M[:, None, :, :]).sum(2)
+
+
+def g2sp_P(pose, camera_k, grd_H: int, grd_W: int, ori_grdH: int,
+           ori_grdW: int, rotation_range: float, shift_range_lat: float,
+           shift_range_lon: float):
+    """The G2SP perspective projection P = K' [R(-heading) | T] (reference
+    models_kitti.py:101-121) of a normalized pose [B, 3], with camera_k
+    [B, 3, 3] rescaled to the grd_H x grd_W map.  Returns [B, 3, 4]."""
+    cos, sin = _rot_neg_heading(pose, rotation_range)
+    zeros, ones = torch.zeros_like(cos), torch.ones_like(cos)
+    R = torch.stack([cos, zeros, -sin,
+                     zeros, ones, zeros,
+                     sin, zeros, cos], dim=-1).reshape(-1, 3, 3)
+    T = torch.stack([pose[:, 1] * shift_range_lat,
+                     geo.CAMERA_HEIGHT * ones,
+                     -(pose[:, 0] * shift_range_lon)], dim=-1)[..., None]
+    k = _scaled_k(camera_k, grd_H, grd_W, ori_grdH, ori_grdW)
+    return _k_times(k, torch.cat([R, T], dim=-1))
+
+
+def _apply_P(P, XYZ1):
+    """P [B, 3, 4] applied to points XYZ1 [H, W, 4] -> [B, H, W, 3]."""
+    return (P[:, None, None, :, :] * XYZ1[None, :, :, None, :]).sum(-1)
+
+
+def g2sp_uv_jac(pose, XYZ1, camera_k, grd_H: int, grd_W: int,
+                ori_grdH: int, ori_grdW: int, rotation_range: float,
+                shift_range_lat: float, shift_range_lon: float):
+    """Perspective projection of satellite ground points into the ground
+    map with its quotient-rule Jacobian (reference models_kitti.py:86-150;
+    the rotation uses -heading).
+
+    pose [B, 3]; XYZ1 [H, W, 4] points (any grid of them); camera_k
+    [B, 3, 3] raw K.  Returns uv [B, H, W, 2] ground-map pixel coords,
+    duv_dpose [B, H, W, 2, 3] (zero where the point is not in front of the
+    camera) and that mask [B, H, W] (uv1_z > 1e-6).
+    """
+    B = pose.shape[0]
+    f32 = dict(dtype=torch.float32, device=pose.device)
+    rot_scale = rotation_range / 180.0 * np.pi
+    cos, sin = _rot_neg_heading(pose, rotation_range)
+    zeros = torch.zeros_like(cos)
+    k = _scaled_k(camera_k, grd_H, grd_W, ori_grdH, ori_grdW)
+    P = g2sp_P(pose, camera_k, grd_H, grd_W, ori_grdH, ori_grdW,
+               rotation_range, shift_range_lat, shift_range_lon)
+
+    uv1 = _apply_P(P, XYZ1)                                # [B, H, W, 3]
+    uv1_last = torch.clamp_min(uv1[..., 2:], 1e-6)
+    uv = uv1[..., :2] / uv1_last
+    mask = uv1[..., 2] > 1e-6
+
+    zeros33 = torch.zeros(B, 3, 3, **f32)
+    dT_du = torch.tensor([0.0, 0.0, -1.0], **f32) * shift_range_lon
+    dT_dv = torch.tensor([1.0, 0.0, 0.0], **f32) * shift_range_lat
+    # d(-heading)/d(theta_norm) = -rot_scale, folded into dR
+    dR_dtheta = rot_scale * torch.stack(
+        [sin, zeros, cos,
+         zeros, zeros, zeros,
+         -cos, zeros, sin], dim=-1).reshape(B, 3, 3)
+
+    def quotient(dM):
+        duv1 = _apply_P(_k_times(k, dM), XYZ1)
+        q = duv1[..., :2] / uv1_last - uv * duv1[..., 2:] / uv1_last
+        return torch.where(mask[..., None], q, torch.zeros_like(q))
+
+    duv = torch.stack([
+        quotient(torch.cat([zeros33, dT_du.expand(B, 3)[..., None]], -1)),
+        quotient(torch.cat([zeros33, dT_dv.expand(B, 3)[..., None]], -1)),
+        quotient(torch.cat([dR_dtheta, torch.zeros(B, 3, 1, **f32)], -1)),
+    ], dim=-1)                                            # [B, H, W, 2, 3]
+    return uv, duv, mask

@@ -1,8 +1,11 @@
-"""Serving API (port of ``highlyaccurate_tpu/inference.py:67-279, 587-671``).
+"""Serving API (port of ``highlyaccurate_tpu/inference.py:67-279, 540-671``).
 
     loc = Localizer(Config(), pth_path="model_1.pth")        # on the GPU
     out = loc.predict(sat_imgs, grd_imgs)   # numpy [N,A,A,3], [N,H,W,3]
     out["lateral_m"], out["longitudinal_m"], out["heading_deg"]     # [N]
+
+    loc = Localizer(Config(direction="G2SP"), pth_path=..., camera_k=K)
+    out = loc.predict(sat_imgs, grd_imgs)              # or camera_k=[N,3,3]
 
 One object owns the model on its device, pads ragged batches to a fixed
 batch size, and converts the normalized pose to meters and degrees.  Tracking
@@ -10,8 +13,10 @@ mode feeds the previous estimate back as a warm start:
 
     out = loc.predict(sat_t, grd_t, init_pose=out_prev)
 
-This slice serves KITTI S2GP only.  G2SP, Ford extrinsics, orbax
-checkpoints and ``return_cov`` raise ``NotImplementedError``.
+This port serves KITTI S2GP and G2SP.  G2SP takes the camera intrinsics
+of the grd_h x grd_w input, per call or as a constructor default.  Ford
+extrinsics, orbax checkpoints and ``return_cov`` raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,18 +27,21 @@ import numpy as np
 import torch
 
 from highlyaccurate_tpu_torch.config import Config
-from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP, check_supported
+from highlyaccurate_tpu_torch.models import lm_g2sp, lm_s2gp
 from highlyaccurate_tpu_torch.params import (init_params, load_pth,
                                              state_dict_from_jax)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
 class Localizer:
-    """Batched pose estimation over the flagship S2GP model.
+    """Batched pose estimation over the KITTI S2GP or G2SP model
+    (``cfg.direction``).
 
     Weights come from exactly one of ``params`` (the JAX package's params
     pytree), ``pth_path`` (a reference checkpoint) or ``random_init=True``
     (untrained weights drawn from ``seed``; tests and smoke runs only).
+    ``camera_k`` [3, 3] (G2SP only) is the default intrinsics of the
+    grd_h x grd_w input for ``predict`` calls that pass none.
     ``device`` defaults to ``cuda`` and raises without a GPU; pass
     ``device="cpu"`` to run the plain PyTorch path on the host.
     """
@@ -41,13 +49,20 @@ class Localizer:
     def __init__(self, cfg: Config, params=None, pth_path: Optional[str] = None,
                  batch_size: int = 8, seed: int = 0, random_init: bool = False,
                  device=None, save_path: Optional[str] = None,
-                 ford_extrinsics=None, ford_side_m: Optional[float] = None):
+                 ford_extrinsics=None, ford_side_m: Optional[float] = None,
+                 camera_k=None):
         if save_path is not None:
             raise NotImplementedError("save_path= (orbax checkpoints) is not "
                                       "supported; pass pth_path= or params=")
         if ford_extrinsics is not None or ford_side_m is not None:
             raise NotImplementedError("Ford extrinsics are not supported yet")
-        check_supported(cfg)
+        self._g2sp = cfg.direction == "G2SP"
+        if camera_k is not None and not self._g2sp:
+            raise ValueError("camera_k is a G2SP input (KITTI S2GP "
+                             "precomputes rays from the fixed default K); "
+                             "build with Config(direction='G2SP')")
+        family = lm_g2sp.LMG2SP if self._g2sp else lm_s2gp.LMS2GP
+        (lm_g2sp if self._g2sp else lm_s2gp).check_supported(cfg)
         sources = sum([params is not None, pth_path is not None,
                        bool(random_init)])
         if sources != 1:
@@ -56,7 +71,9 @@ class Localizer:
         self.cfg = cfg
         self.batch_size = batch_size
         self.device = resolve_device(device)
-        self.model = LMS2GP(cfg, device=self.device)
+        self._camera_k = (None if camera_k is None else
+                          np.asarray(camera_k, np.float32).reshape(3, 3))
+        self.model = family(cfg, device=self.device)
         if random_init:
             init_params(self.model, torch.Generator().manual_seed(seed))
         else:
@@ -66,12 +83,16 @@ class Localizer:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
 
-    def predict(self, sat_imgs, grd_imgs, init_pose=None,
+    def predict(self, sat_imgs, grd_imgs, camera_k=None, init_pose=None,
                 return_cov: bool = False) -> dict:
         """sat_imgs [N, A, A, 3], grd_imgs [N, H, W, 3] (float in [0, 1] or
         uint8).  Returns numpy {"lateral_m", "longitudinal_m",
         "heading_deg"}, each [N], denormalized as the reference eval does
         (reference train_kitti.py:77-80).
+
+        G2SP only: ``camera_k`` [N, 3, 3] (or [3, 3], one rig), the
+        intrinsics of the grd_h x grd_w input; required unless the
+        constructor got ``camera_k=``.
 
         ``init_pose`` warm-starts the solver: the dict a previous
         ``predict`` returned or an [N, 3] array of (lateral_m,
@@ -84,7 +105,7 @@ class Localizer:
                   cfg.rotation_range)
         sat_imgs = np.asarray(sat_imgs)
         n = sat_imgs.shape[0]
-        extras = {}
+        extras = _per_image_extras(n, self._g2sp, self._camera_k, camera_k)
         if init_pose is not None:
             extras["_init_pose"] = _init_to_normalized(init_pose, n, ranges)
 
@@ -97,13 +118,42 @@ class Localizer:
 
         def run(sb, gb, eb):
             init = to_dev(eb["_init_pose"]) if "_init_pose" in eb else None
-            lat, lon, th = self.model(to_dev(sb), to_dev(gb), mode="test",
-                                      init_pose=init,
-                                      generator=self._generator)
+            if self._g2sp:
+                lat, lon, th = self.model(to_dev(sb), to_dev(gb),
+                                          to_dev(eb["camera_k"]),
+                                          mode="test", init_pose=init)
+            else:
+                lat, lon, th = self.model(to_dev(sb), to_dev(gb),
+                                          mode="test", init_pose=init,
+                                          generator=self._generator)
             return lat.cpu().numpy(), lon.cpu().numpy(), th.cpu().numpy()
 
         return _batched_predict(run, sat_imgs, grd_imgs, self.batch_size,
                                 ranges, extras)
+
+
+def _per_image_extras(n, g2sp, default_k, camera_k) -> dict:
+    """The per-image camera_k [N, 3, 3] of a G2SP call, from the call's
+    ``camera_k`` ([N, 3, 3] or [3, 3]) or the constructor's default; an
+    S2GP call takes none."""
+    if not g2sp:
+        if camera_k is not None:
+            raise ValueError("camera_k is a G2SP input; this localizer "
+                             "serves an S2GP model (the fixed-K quirk: KITTI "
+                             "S2GP precomputes rays from the default K)")
+        return {}
+    k = camera_k if camera_k is not None else default_k
+    if k is None:
+        raise ValueError("G2SP serving needs camera intrinsics: pass "
+                         "camera_k= ([N,3,3] or [3,3]) to predict(), or a "
+                         "default at construction")
+    k = np.asarray(k, np.float32)
+    if k.shape == (3, 3):
+        k = np.broadcast_to(k, (n, 3, 3))
+    if k.shape != (n, 3, 3):
+        raise ValueError(f"camera_k must have shape ({n}, 3, 3) to match the "
+                         f"{n} images, got {k.shape}")
+    return {"camera_k": k}
 
 
 def _init_to_normalized(init_pose, n, ranges) -> np.ndarray:

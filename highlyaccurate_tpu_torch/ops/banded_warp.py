@@ -129,13 +129,20 @@ def banded_sample_reference(sat_k, coefs, W: int, with_dxy: bool):
     out = sum wx*gy*map, dx = sum dwx*gy*map, dy = sum wx*dgy*map,
     dxy = sum dwx*dgy*map, where wx and dwx carry the mask.
     """
-    B, A = sat_k.shape[:2]
+    return bilinear_samples(sat_k, *_line_cells(coefs, W, sat_k.shape[1]),
+                            with_dxy)
+
+
+def bilinear_samples(map_k, x0, y0, fx, fy, m, with_dxy: bool):
+    """The bilinear samples of map_k [B, AY, AX, C] at the cells (x0, y0,
+    fx, fy, m [B, V, W]) of ``_line_cells`` or its projective sibling:
+    (out, dx, dy[, dxy]), each [B, V, W, C] float32, zero where m is 0."""
+    B = map_k.shape[0]
     f32 = torch.float32
-    x0, y0, fx, fy, m = _line_cells(coefs, W, A)
-    bi = torch.arange(B, device=sat_k.device)[:, None, None]
+    bi = torch.arange(B, device=map_k.device)[:, None, None]
 
     def corner(dy, dx):
-        return sat_k[bi, y0 + dy, x0 + dx].to(f32)        # [B, V, W, C]
+        return map_k[bi, y0 + dy, x0 + dx].to(f32)        # [B, V, W, C]
 
     a, b, c, d = corner(0, 0), corner(0, 1), corner(1, 0), corner(1, 1)
     wxa = ((1.0 - fx) * m)[..., None]
@@ -158,23 +165,32 @@ def banded_sample_backward_reference(coefs, g_o, g_dx, g_dy, A: int):
     each kept sample receives g_o*wx*gy + g_dx*dwx*gy + g_dy*wx*dgy.
     Returns the map gradient [B, A, A, C] float32 in kernel axes.
     """
+    return bilinear_transpose(*_line_cells(coefs, g_o.shape[2], A), g_o,
+                              g_dx, g_dy, A, A)
+
+
+def bilinear_transpose(x0, y0, fx, fy, m, g_o, g_dx, g_dy, AY: int,
+                       AX: int):
+    """The transpose of ``bilinear_samples``'s (out, dx, dy) at the same
+    cells: the map gradient [B, AY, AX, C] float32 of the cotangents
+    g_o, g_dx, g_dy [B, V, W, C]."""
     B, V, W, C = g_o.shape
-    x0, y0, fx, fy, m = _line_cells(coefs, W, A)
     wxa = ((1.0 - fx) * m)[..., None]
     wxb = (fx * m)[..., None]
     gya = (1.0 - fy)[..., None]
     gyb = fy[..., None]
     mm = m[..., None]
     gx = g_dx * mm
-    grad = torch.zeros(B * A * A, C, dtype=torch.float32, device=g_o.device)
-    base = ((torch.arange(B, device=g_o.device)[:, None, None] * A + y0) * A
-            + x0)                                         # [B, V, W]
+    grad = torch.zeros(B * AY * AX, C, dtype=torch.float32,
+                       device=g_o.device)
+    base = ((torch.arange(B, device=g_o.device)[:, None, None] * AY + y0)
+            * AX + x0)                                    # [B, V, W]
     for t, off in ((g_o * wxa * gya - gx * gya - g_dy * wxa, 0),
                    (g_o * wxb * gya + gx * gya - g_dy * wxb, 1),
-                   (g_o * wxa * gyb - gx * gyb + g_dy * wxa, A),
-                   (g_o * wxb * gyb + gx * gyb + g_dy * wxb, A + 1)):
+                   (g_o * wxa * gyb - gx * gyb + g_dy * wxa, AX),
+                   (g_o * wxb * gyb + gx * gyb + g_dy * wxb, AX + 1)):
         grad.index_add_(0, (base + off).reshape(-1), t.reshape(-1, C))
-    return grad.view(B, A, A, C)
+    return grad.view(B, AY, AX, C)
 
 
 def moment_sums(s, dx, dy, grd, mask):

@@ -1,6 +1,7 @@
-"""LM pose updates of the S2GP solver (port of
-``highlyaccurate_tpu/solver/updates.py:29-43, 79-92, 156-237, 251-393``):
-from K1's fused moments (evaluation) and from K2's line samples (training).
+"""LM pose updates (port of ``highlyaccurate_tpu/solver/updates.py:29-43,
+79-92, 156-248, 251-393, 441-479``): the S2GP update from K1's fused
+moments (evaluation) and from K2's line samples (training), and the G2SP
+per-pixel update from K4's samples (both).
 
 pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
 solve runs in float32 whatever the feature dtype.  The contractions are
@@ -24,11 +25,15 @@ REINIT_RANGE = 2.5
 
 
 class LMConfig(NamedTuple):
-    """Static solver knobs of the S2GP update (subset of Config)."""
+    """Static solver knobs (subset of Config).  G2SP sets ``reinit=False``
+    (no out-of-range re-init) and ``raw_damping=True`` (a trained damping
+    is used as it is, reference models_kitti.py:356-359)."""
     active_dims: tuple = (0, 1, 2)
     train_damping: bool = False
     damping: float = 0.1
     use_hessian: bool = False
+    reinit: bool = True
+    raw_damping: bool = False
 
 
 def compute_damping(damping_param, cfg: LMConfig, n_active: int,
@@ -36,13 +41,15 @@ def compute_damping(damping_param, cfg: LMConfig, n_active: int,
     """Per-DoF damping vector [n_active] (float32).
 
     Trained damping uses the reference's log-parameterization
-    10^(-6 + 11*sigmoid(d)) (models_kitti.py:962-963); otherwise a constant.
+    10^(-6 + 11*sigmoid(d)) (models_kitti.py:962-963), or with
+    ``raw_damping`` the parameter itself; otherwise a constant.
     """
     if cfg.train_damping:
         d = damping_param.reshape(-1).to(torch.float32)
         if d.shape[0] == 1:
             d = d.expand(3)
-        d = torch.pow(10.0, -6.0 + torch.sigmoid(d) * 11.0)
+        if not cfg.raw_damping:
+            d = torch.pow(10.0, -6.0 + torch.sigmoid(d) * 11.0)
         return d[list(cfg.active_dims)][:n_active]
     return torch.full((n_active,), cfg.damping, dtype=torch.float32,
                       device=device)
@@ -56,7 +63,8 @@ def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
     hess [B, n, n] and g [B, n] are already active-dim sliced.  The re-init
     numbers are drawn every round (as the JAX package splits its key every
     round), from ``generator`` on the pose's device.  Only a solve over all
-    three DoF re-inits, as in the JAX package.
+    three DoF with ``cfg.reinit`` re-inits (and draws), as in the JAX
+    package; without it ``generator`` may be None.
     """
     B = pose.shape[0]
     act = list(cfg.active_dims)
@@ -74,7 +82,7 @@ def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
 
     new = pose.to(torch.float32).clone()
     new[:, act] += delta
-    if n == 3:
+    if cfg.reinit and n == 3:
         rand = torch.rand(2, B, generator=generator, dtype=torch.float32,
                           device=pose.device) * 2.0 - 1.0
         lim = REINIT_RANGE
@@ -165,3 +173,46 @@ def lm_update_implicit(pose, out, dx, dy, grd, mask, P0, dP, damping_param,
     M = moment_sums(out.to(f32), dx.to(f32), dy.to(f32), grd, mask)
     return lm_update_from_moments(pose, M, P0, dP, damping_param, cfg,
                                   generator)
+
+
+def _pixel_hessian(Du, Dv, sxx, sxy, syy):
+    """Sum over pixels of duv^T S duv with S = [[sxx, sxy], [sxy, syy]]
+    per pixel: Du, Dv [B, H, W, 3] (d(x)/d(pose), d(y)/d(pose)), the
+    moments [B, H, W] -> [B, 3, 3]."""
+    def outer(X, Y, w):
+        return (X[..., :, None] * Y[..., None, :]
+                * w[..., None, None]).sum((1, 2))
+    return (outer(Du, Du, sxx) + outer(Du, Dv, sxy) + outer(Dv, Du, sxy)
+            + outer(Dv, Dv, syy))
+
+
+def lm_update_implicit_pixel(pose, out, dx, dy, target, duv, damping_param,
+                             cfg: LMConfig):
+    """The G2SP LM update from per-pixel moments, the [B, H, W, C, 3]
+    Jacobian never materialized: residual r = out - target, no feature
+    normalization, J[p, c, :] = dx[p, c]*duv_x[p, :] + dy[p, c]*duv_y[p, :]:
+
+        H = sum_p duv_p^T S_p duv_p,   S_p = [[sxx, sxy], [sxy, syy]]_p
+        g = sum_p duv_p^T [sum_c dx*r; sum_c dy*r]_p
+
+    out, dx, dy [B, H, W, C] sampled values and screen derivatives (K4's
+    outputs, zero out of view); target [B, H, W, C] (any strides); duv
+    [B, H, W, 2, 3].  Differentiable with respect to every tensor argument.
+    It never re-inits, whatever ``cfg.reinit`` says, as in the JAX package.
+    """
+    f32 = torch.float32
+    out, dx, dy = out.to(f32), dx.to(f32), dy.to(f32)
+    r = out - target.to(f32)
+    sxx = (dx * dx).sum(-1)                              # [B, H, W]
+    sxy = (dx * dy).sum(-1)
+    syy = (dy * dy).sum(-1)
+    rx = (dx * r).sum(-1)
+    ry = (dy * r).sum(-1)
+    Du = duv[..., 0, :].to(f32)                          # [B, H, W, 3]
+    Dv = duv[..., 1, :].to(f32)
+    hess = _pixel_hessian(Du, Dv, sxx, sxy, syy)
+    g = ((Du * rx[..., None]).sum((1, 2))
+         + (Dv * ry[..., None]).sum((1, 2)))
+    act = list(cfg.active_dims)
+    return _solve_and_reinit(pose, hess[:, act][:, :, act], g[:, act],
+                             damping_param, cfg._replace(reinit=False), None)

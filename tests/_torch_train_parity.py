@@ -25,9 +25,10 @@ B = 2
 LOSS_UNIT_METRICS = ("loss_decrease", "loss_last")
 
 
-def update_agreement(r):
+def update_agreement(r, strong_frac=1e-2):
     """{parameter: (largest update difference over the elements whose JAX
-    gradient is at least 1% of the tensor's RMS gradient, over all)}.
+    gradient is at least ``strong_frac`` (1%) of the tensor's RMS gradient,
+    over all)}.
 
     Adam's first update is lr * g / (|g| + eps), about lr * sign(g), so an
     element whose gradient is within the frameworks' noise of zero may step
@@ -35,7 +36,7 @@ def update_agreement(r):
     update by lr * r * eps / |g| only."""
     out = {}
     for name, (d, w) in r.updates.items():
-        strong = np.abs(w) >= 1e-2 * np.sqrt(np.mean(w * w))
+        strong = np.abs(w) >= strong_frac * np.sqrt(np.mean(w * w))
         out[name] = (float(d[strong].max(initial=0.0)), float(d.max()))
     return out
 

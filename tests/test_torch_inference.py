@@ -1,7 +1,8 @@
 """Port parity for the serving API and the port's package rules:
-``Localizer.predict`` on the CPU against the JAX ``Localizer`` on the same
-params; the port imports nothing of JAX; options this slice does not carry
-raise ``NotImplementedError``; with no GPU, the default device raises."""
+``Localizer.predict`` (S2GP) on the CPU against the JAX ``Localizer`` on the
+same params; the port imports nothing of JAX; options the port does not
+carry raise ``NotImplementedError``; with no GPU, the default device
+raises.  The G2SP ``Localizer`` is in tests/test_torch_lm_g2sp.py."""
 
 import ast
 import pathlib
@@ -93,6 +94,9 @@ def test_port_imports_no_jax():
 
 
 UNSUPPORTED = [
+    # G2SP at TINY's 32-row ground input: the coarse level's ground map is
+    # 4 rows, which needs the gather sampler (tests/test_torch_lm_g2sp.py
+    # has the G2SP options)
     dict(direction="G2SP"), dict(proj="polar"), dict(Optimizer="SGD"),
     dict(using_weight=1), dict(use_gt_depth=1), dict(dropout=2),
     dict(level_first=1), dict(pose_hypotheses=4), dict(use_fused_moments=0),
