@@ -9,8 +9,9 @@ Builds the hand-written kernels from the sources in the checkout, then:
    (``banded_sample_backward``) at each flagship launch shape (KITTI S2GP,
    512x512 satellite, 256x1024 ground, level=3, batch 8, bf16 map), lines
    from ``s2gp_uv_jac`` at random in-range poses; and K4
-   (``projline_sample_forward``) and K5 (``projline_sample_backward``) at
-   each flagship G2SP level, lines from ``g2sp_P`` with the default K.
+   (``projline_sample_forward``), K5 (``projline_sample_backward``) and K6
+   (``projline_pixmom``) at each flagship G2SP level, lines from
+   ``g2sp_P`` with the default K.
    Each against its plain PyTorch version on the card; kernel and plain
    times (CUDA events, warmed up, L2 flushed before every launch, as the
    solver finds the map cold) beside the least time the card could take
@@ -45,12 +46,27 @@ Builds the hand-written kernels from the sources in the checkout, then:
    ``G2SP_BATCHES`` batches with exactly 15 K4 launches per batch, and
    ``G2SP_TRAIN_STEPS`` train steps with exactly 15 K4 and 15 K5 launches
    per step, each against a CPU run of the port at batch 2 (tables in
-   chiprun_out/profile_g2sp_eval_b8.txt and profile_g2sp_train_b8.txt).
+   chiprun_out/profile_g2sp_eval_b8.txt and profile_g2sp_train_b8.txt);
+7. g2sp_pixmom_main_path, profile_g2sp_pixmom: G2SP serving with the fused
+   pixel moments (``g2sp_pixel_moments=1``) on the same weights and images:
+   exactly 15 K6 (``projline_pixmom``) launches per batch and no K4; the
+   poses against the K4 path on the same card and against a CPU run
+   (table in chiprun_out/profile_g2sp_pixmom_eval_b8.txt).  K6 is also
+   checked in phase 1, at each G2SP level, against its plain version and
+   against K4's samples contracted in torch;
+8. ford_main_path, profile_ford, ford_train, profile_ford_train: Ford
+   LM_S2GP_Ford (``Config()``, the Ford rig, a 512 x 0.22 m patch):
+   serving ``FORD_BATCHES`` batches with exactly 15 K1 launches per batch
+   (the kernel layout the rig takes and the samples it keeps in round 1,
+   beside the JAX package's layout), and ``FORD_TRAIN_STEPS`` train steps
+   with exactly 15 K2 and 15 K3 launches per step, each against a CPU run
+   of the port at batch 2 (tables in chiprun_out/profile_ford_eval_b8.txt
+   and profile_ford_train_b8.txt).
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
-and matrix products run in full fp32 (TF32 off).  The last three lines are
-the kernel table, the card's name and power limit, and ``{"ok": true,
-"device": {...}}``.
+and matrix products run in full fp32 (TF32 off).  The last four lines are
+the seconds the run took, the kernel table, the card's name and power
+limit, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -76,6 +92,9 @@ K1_FLOPS_GG = 2
 # corners of 3 products and 2 sums each, and the 4 adds into the gradient
 K2_FLOPS_KEPT = 22
 K3_FLOPS_KEPT = 24
+# K6 per kept (sample, channel): value 9, d/dx 5, d/dy 5, the residual 1
+# and five products summed (10)
+K6_FLOPS_KEPT = 30
 KERNEL_TOL = 1e-4      # |kernel - plain| <= KERNEL_TOL * column scale + 1e-6
 SAMPLER_TOL = 1e-5     # K2, K3: |kernel - plain| <= SAMPLER_TOL * max + 1e-6
 VJP_TOL = 1e-5         # sampler VJP vs autograd: |err| <= VJP_TOL * max
@@ -98,12 +117,35 @@ G2SP_TRAIN_TOL = {("end_to_end", "loss_rel_err"): 1e-5,
                   ("solver_only", "feature_grad_rel_l2_max"): 0.1,
                   ("nets_only", "grad_rel_l2_max"): 1e-2,
                   ("nets_only", "grad_rel_l2_all"): 5e-3}
+# G2SP serving with K6 against the K4 path on the same card, the same
+# samples with the channel sums in another order: limits on the (round-1,
+# final) pose (see PERF.md section 6)
+PIXMOM_VS_K4_TOL = (1e-6, 1e-4)
+# Ford, card vs CPU (see PERF.md section 6): the round-1 pose of serving,
+# and one train step at batch 2 in the three parts of TRAIN_TOL; each limit
+# sits between the reading and a known perturbation, save the solver's
+# feature gradients, which the kernels against their plain versions move
+# as far as the CPU does (as in S2GP)
+FORD_ROUND1_TOL = 1e-4
+FORD_TRAIN_TOL = {("end_to_end", "loss_rel_err"): 2e-4,
+                  ("end_to_end", "grad_rel_l2_all"): 0.03,
+                  ("solver_only", "loss_rel_err"): 2e-4,
+                  ("solver_only", "feature_grad_rel_l2_max"): 0.2,
+                  ("nets_only", "grad_rel_l2_max"): 1e-2,
+                  ("nets_only", "grad_rel_l2_all"): 5e-3}
+# the Ford data's front-left camera -> body calibration (quaternion w, x,
+# y, z and translation in meters) and its 512-pixel patch at 0.22 m/pixel
+FORD_QVEC = (0.496157034, -0.486630591, 0.507791308, -0.509084328)
+FORD_T_FL = (1.470563, 0.405664, 1.243369)
+FORD_SIDE_M = 512 * 0.22
 BATCH = 8
 N_BATCHES = 20         # one timed window of several seconds
 TRAIN_STEPS = 10       # the timed train window
 TRAIN_CHECK_BATCH = 2  # card vs CPU train step
-G2SP_BATCHES = 10      # the G2SP serving window
+G2SP_BATCHES = 10      # the G2SP serving windows (K4, K6)
 G2SP_TRAIN_STEPS = 5   # the G2SP train window
+FORD_BATCHES = 10      # the Ford serving window
+FORD_TRAIN_STEPS = 5   # the Ford train window
 
 
 def emit(obj):
@@ -213,7 +255,7 @@ def _counters():
     return {"k1": bw.banded_moments, "k2": bw.banded_sample,
             "k3": bw.banded_sample_backward,
             "k4": tpl.projline_sample_forward,
-            "k5": tpl.projline_sample_backward}
+            "k5": tpl.projline_sample_backward, "k6": tpl.projline_pixmom}
 
 
 def reset_launches():
@@ -499,6 +541,58 @@ def projline_checks(torch, tpl, grd_k, coefs, W, gen, flush, slot):
     return k4, k5
 
 
+def lane_error(got, want):
+    """(max abs error, max error over each lane's max|plain|, within
+    |err| <= SAMPLER_TOL * max|plain lane| + 1e-6) of [..., L] moments."""
+    err = (got - want).abs().flatten(0, -2).amax(0)
+    scale = want.abs().flatten(0, -2).amax(0)
+    ok = bool((err <= SAMPLER_TOL * scale + 1e-6).all())
+    return float(err.max()), float((err / scale.clamp_min(1e-30)).max()), ok
+
+
+def pixmom_check(torch, tpl, grd_k, tgt, coefs, W, flush, slot):
+    """K6 on the ground map, target rows and lines of one flagship G2SP
+    level against its plain version on the card, and against K4's out, dx,
+    dy contracted in torch; timed beside its bound.  Returns the
+    kernel_check row."""
+    B, AY, AX, C = grd_k.shape
+    V = coefs.shape[1]
+    touched, n_keep, _, _ = cell_stats(
+        torch, tpl._projline_cells(coefs, W, AY, AX), AY, AX)
+    got = tpl.projline_pixmom(grd_k, tgt, coefs, W)
+    want = tpl.projline_pixmom_reference(grd_k, tgt, coefs, W)
+    via_k4 = torch.stack(tpl.pixel_moments(*tpl.projline_sample_forward(
+        grd_k, coefs, W, with_dxy=False), tgt), -1)
+    torch.cuda.synchronize()
+    abs6, rel6, ok6 = lane_error(got, want)
+    abs_k4, rel_k4, ok_k4 = lane_error(got, via_k4)
+    del got, want, via_k4
+    # the map corners and target rows of the kept samples, coefs, the five
+    # moments written
+    nbytes = (touched * C * grd_k.element_size() + n_keep * C * 4
+              + coefs.numel() * 4 + B * V * W * len(tpl.PIXMOM_IDX) * 4)
+    flops = K6_FLOPS_KEPT * n_keep * C
+    row = dict(phase="kernel_check", kernel="projline_pixmom", slot=slot,
+               shape=dict(B=B, AY=AY, AX=AX, C=C, V=V, W=W),
+               max_abs_err=abs6, max_rel_err=rel6,
+               tol=f"|err| <= {SAMPLER_TOL} * max|plain lane| + 1e-6 per lane",
+               within_tol=ok6, k4_contracted_max_abs_err=abs_k4,
+               k4_contracted_max_rel_err=rel_k4, k4_contracted_within_tol=ok_k4,
+               ms=time_cuda(torch, lambda: tpl.projline_pixmom(
+                   grd_k, tgt, coefs, W), flush),
+               plain_ms=time_cuda(torch, lambda: tpl.projline_pixmom_reference(
+                   grd_k, tgt, coefs, W), flush, iters=5),
+               bytes=nbytes, flops=flops, kept_samples=n_keep,
+               samples=B * V * W)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    emit(row)
+    if not (ok6 and ok_k4):
+        fail(f"K6 disagrees at slot {slot}: with its plain version max abs "
+             f"{abs6} (rel {rel6}), with K4 contracted max abs {abs_k4} "
+             f"(rel {rel_k4})")
+    return row
+
+
 def projline_vjp_check(torch, tpl, grd, h0, dh, W, gen):
     """The projective-line sampler's whole VJP (K4 with dxy, K5 and the
     coefficient gradients, through ``pack_projline_coefs``) against
@@ -529,9 +623,10 @@ def projline_vjp_check(torch, tpl, grd, h0, dh, W, gen):
 
 
 def phase_g2sp_kernels(torch, dev, flush):
-    """K4 and K5 at the three flagship G2SP levels (lines from ``g2sp_P``
-    at random in-range poses with the default K), and the projective-line
-    VJP at the middle one."""
+    """K4, K5 and K6 at the three flagship G2SP levels (lines from
+    ``g2sp_P`` at random in-range poses with the default K; K6's target a
+    transposed view of a satellite map, as the model passes it), and the
+    projective-line VJP at the middle one."""
     from highlyaccurate_tpu_torch import Config
     from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
     from highlyaccurate_tpu_torch.ops import projline as tpl
@@ -539,16 +634,23 @@ def phase_g2sp_kernels(torch, dev, flush):
     cfg = Config(direction="G2SP")
     gen = torch.Generator(device=dev).manual_seed(3)
     k = torch.from_numpy(_scaled_default_k(cfg)).to(dev).expand(BATCH, 3, 3)
-    rows = {"projline_sample": [], "projline_sample_backward": []}
+    rows = {"projline_sample": [], "projline_sample_backward": [],
+            "projline_pixmom": []}
     for slot, C in zip((0, 1, 2), (256, 128, 64)):
         pose = torch.rand(BATCH, 3, generator=gen, device=dev) * 2 - 1
         A, AY, AX, j0, h0, dh, coefs = g2sp_lines(torch, cfg, slot, pose, k)
         grd = torch.randn(BATCH, AY, AX, C, generator=gen, device=dev)
         k4, k5 = projline_checks(torch, tpl, grd.to(torch.bfloat16), coefs,
                                  A, gen, flush, slot)
-        k4["shape"]["j0"] = k5["shape"]["j0"] = j0
+        sat = torch.randn(BATCH, A, A, C, generator=gen, device=dev)
+        k6 = pixmom_check(torch, tpl, grd.to(torch.bfloat16),
+                          sat[:, :, j0:].transpose(1, 2), coefs, A, flush,
+                          slot)
+        del sat
+        k4["shape"]["j0"] = k5["shape"]["j0"] = k6["shape"]["j0"] = j0
         rows["projline_sample"].append(k4)
         rows["projline_sample_backward"].append(k5)
+        rows["projline_pixmom"].append(k6)
         if slot == 1:
             emit(dict(phase="projline_vjp", slot=slot, shape=k4["shape"],
                       map="bf16-exact float32", tol=f"|err| <= {VJP_TOL} * max",
@@ -556,24 +658,25 @@ def phase_g2sp_kernels(torch, dev, flush):
                                                gen)))
     return rows
 
-
-def phase_main_path(torch, dev):
-    from highlyaccurate_tpu_torch import Config
-    from highlyaccurate_tpu_torch.geometry.kitti import s2gp_uv_jac
-    from highlyaccurate_tpu_torch.inference import Localizer
-    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP, banded_project
-    from highlyaccurate_tpu_torch.ops import banded_warp as bw
-
-    cfg = Config()
-    n_levels = cfg.n_levels
-    t0 = time.perf_counter()
-    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0)
-    init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(0)
-    n = BATCH * N_BATCHES
+def serve_images(cfg, seed, n):
+    """Seeded uint8 satellite and ground images, n of each."""
+    rng = np.random.RandomState(seed)
     sat = (rng.rand(n, cfg.sat_size, cfg.sat_size, 3) * 255).astype(np.uint8)
     grd = (rng.rand(n, cfg.grd_h, cfg.grd_w, 3) * 255).astype(np.uint8)
+    return sat, grd
 
+
+def first_batch(torch, dev, sat, grd):
+    """The first BATCH images as the float32 tensors predict makes."""
+    return tuple(torch.from_numpy(a[:BATCH].astype(np.float32) / 255.0)
+                 .to(dev) for a in (sat, grd))
+
+
+def serve_window(torch, loc, sat, grd, what, expected):
+    """One warm-up batch, then one timed ``predict`` over all the images
+    with the launch counts reset: (outputs, wall s, launches, peak GB).
+    Fails unless the kernels launched exactly as ``expected`` per batch."""
+    n_batches = sat.shape[0] // BATCH
     loc.predict(sat[:BATCH], grd[:BATCH])  # warm-up (cuDNN algorithm pick)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -582,36 +685,118 @@ def phase_main_path(torch, dev):
     out = loc.predict(sat, grd)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    per_batch = cfg.N_iters * n_levels
-    launches = expect_launches("S2GP serving",
-                               {"k1": per_batch * N_BATCHES})["k1"]
-    for k, v in out.items():
-        if v.shape != (n,) or not np.isfinite(v).all():
-            fail(f"{k}: shape {v.shape} or non-finite values")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    counts = expect_launches(what, {k: v * n_batches
+                                    for k, v in expected.items()})
+    for key, v in out.items():
+        if v.shape != (sat.shape[0],) or not np.isfinite(v).all():
+            fail(f"{what} {key}: shape {v.shape} or non-finite values")
+    return out, wall, counts, torch.cuda.max_memory_allocated() / 1e9
 
-    # feature / solver split of one batch (device time, CUDA events), with
-    # the re-init draw every round as predict makes it
-    model, gen = loc.model, loc._generator
-    s8 = torch.from_numpy(sat[:BATCH].astype(np.float32) / 255.0).to(dev)
-    g8 = torch.from_numpy(grd[:BATCH].astype(np.float32) / 255.0).to(dev)
-    flush = torch.empty(1, device=dev)
+
+def split_ms(torch, model, s8, g8, forward):
+    """Device ms of the features alone and of the whole ``forward`` of one
+    batch (CUDA events)."""
+    flush = torch.empty(1, device=s8.device)
     with torch.no_grad():
-        feat_ms = time_cuda(torch, lambda: model.extract_features(s8, g8),
-                            flush, iters=5, warm=1)
-        full_ms = time_cuda(
-            torch, lambda: model(s8, g8, mode="test", generator=gen),
-            flush, iters=5, warm=1)
+        return (time_cuda(torch, lambda: model.extract_features(s8, g8),
+                          flush, iters=5, warm=1),
+                time_cuda(torch, forward, flush, iters=5, warm=1))
 
+
+def serve_row(phase, config, window, split, init_s, **extra):
+    """The JSON line of a serving phase: ``window`` from serve_window,
+    ``split`` from split_ms."""
+    out, wall, counts, peak_gb = window
+    n = out["lateral_m"].shape[0]
+    n_batches = n // BATCH
+    row = dict(phase=phase, config=config, batch=BATCH, batches=n_batches,
+               images=n, wall_s=wall, frames_per_s=n / wall,
+               ms_per_batch=wall / n_batches * 1e3)
+    for k, v in counts.items():
+        if v:
+            row[f"{k}_launches"] = v
+            row[f"{k}_launches_per_batch"] = v // n_batches
+    row.update(features_ms_per_batch=split[0], forward_ms_per_batch=split[1],
+               solver_ms_per_batch=split[1] - split[0], peak_mem_gb=peak_gb,
+               init_s=init_s, **extra,
+               lateral_m_first=out["lateral_m"][:4].tolist())
+    emit(row)
+    return row
+
+
+def traj_vs_cpu(torch, card_traj, cpu_traj, tol, what):
+    """Round-1 and all-round pose differences of the card's trajectory
+    against the CPU's at batch 2, beside the card with TF32 convolutions (a
+    known perturbation for scale); fails if round 1 differs by more than
+    ``tol``.  Where the model re-inits, the two generators draw different
+    numbers, so a re-init in round 1 fails as loudly as a wrong kernel."""
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        tc = cpu_traj()
+        cpu_s = time.perf_counter() - t0
+        tg = card_traj()
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tt = card_traj()
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+    tc, tg, tt = (torch.stack(t, -1).cpu().numpy() for t in (tc, tg, tt))
+    if not all(np.isfinite(t).all() for t in (tc, tg, tt)):
+        fail(f"non-finite {what} trajectory")
+    d = np.abs(tg - tc)
+    round1 = float(d[:, 0, 0].max())
+    if round1 > tol:
+        fail(f"{what} round-1 pose differs between card and CPU by {round1}")
+    return dict(batch=2, round1_max_abs=round1,
+                all_rounds_max_abs=float(d.max()), round1_tol=tol,
+                round1_max_abs_tf32_convs=float(
+                    np.abs(tt - tc)[:, 0, 0].max()), cpu_s=cpu_s)
+
+
+def cpu_twin(family, model):
+    """A CPU copy of ``model`` (same family, config and weights)."""
+    cpu = family(model.cfg, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    return cpu
+
+
+def phase_main_path(torch, dev):
+    """S2GP serving at full width: ``Localizer(Config())`` predicts a window
+    of seeded batches (K1 exactly 15 times per batch, no other kernel); the
+    first-round moments of every level on the real features against the
+    plain version; the trajectory of the card against a CPU run at batch
+    2."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.geometry.kitti import s2gp_uv_jac
+    from highlyaccurate_tpu_torch.inference import Localizer
+    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP, banded_project
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+
+    cfg = Config()
+    t0 = time.perf_counter()
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0)
+    init_s = time.perf_counter() - t0
+    sat, grd = serve_images(cfg, 0, BATCH * N_BATCHES)
+    window = serve_window(torch, loc, sat, grd, "S2GP serving",
+                          {"k1": cfg.N_iters * cfg.n_levels})
+    # the re-init draw every round, as predict makes it
+    model, gen = loc.model, loc._generator
+    s8, g8 = first_batch(torch, dev, sat, grd)
+
+    def forward():
+        return model(s8, g8, mode="test", generator=gen)
+
+    split = split_ms(torch, model, s8, g8, forward)
+    with torch.no_grad():
         # first-round moments of every level, kernel vs plain, real features
         sf, _, gf, _ = model.extract_features(s8, g8)
         pose0 = torch.zeros(BATCH, 3, device=dev)
         m_err = []
         for lvl, slot in enumerate(model._slots):
             A = sf[lvl].shape[1]
-            xyz01 = getattr(model, f"xyz01_{slot}")
             mask = getattr(model, f"mask_{slot}")
-            uv01, duv01 = s2gp_uv_jac(pose0, xyz01, A, cfg.rotation_range,
+            uv01, duv01 = s2gp_uv_jac(pose0, getattr(model, f"rows01_{slot}"),
+                                      A, cfg.rotation_range,
                                       cfg.shift_range_lat, cfg.shift_range_lon)
             H = gf[lvl].shape[1]
             rows = gf[lvl][:, H // 2:].contiguous()
@@ -626,53 +811,19 @@ def phase_main_path(torch, dev):
                      f"{abs_err} abs, {rel_err} rel")
             m_err.append(dict(level=lvl, max_abs_err=abs_err,
                               max_rel_err=rel_err))
-
-        # the card against a CPU run of the port, batch 2.  The two
-        # generators draw different re-init numbers, so a re-init in round 1
-        # would fail the check as loudly as a wrong kernel would.
-        cpu = LMS2GP(cfg, device="cpu")
-        cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
-        t0 = time.perf_counter()
-        tc = cpu(s8[:2].cpu(), g8[:2].cpu(), mode="trajectory",
-                 generator=torch.Generator().manual_seed(0))
-        cpu_s = time.perf_counter() - t0
-
-        def card_traj():
-            return model(s8[:2], g8[:2], mode="trajectory",
-                         generator=torch.Generator(device=dev).manual_seed(0))
-        tg = card_traj()
-        # a known perturbation for scale: the same run with TF32 convolutions
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            tt = card_traj()
-        finally:
-            torch.backends.cudnn.allow_tf32 = False
-    tc, tg, tt = (torch.stack(t, -1).cpu().numpy() for t in (tc, tg, tt))
-    if not all(np.isfinite(t).all() for t in (tc, tg, tt)):
-        fail("non-finite trajectory")
-    d = np.abs(tg - tc)
-    round1 = float(d[:, 0, 0].max())
-    round1_tf32 = float(np.abs(tt - tc)[:, 0, 0].max())
-    if round1 > ROUND1_TOL:
-        fail(f"round-1 pose differs between card and CPU by {round1}")
-
-    row = dict(
-        phase="main_path", config="KITTI S2GP geo LM, sat 512, grd 256x1024, "
-        "level 3, N_iters 5, fp32 features, bf16 map, TF32 off",
-        batch=BATCH, batches=N_BATCHES, images=n, wall_s=wall,
-        frames_per_s=n / wall, ms_per_batch=wall / N_BATCHES * 1e3,
-        k1_launches=launches, k1_launches_per_batch=launches // N_BATCHES,
-        features_ms_per_batch=feat_ms, forward_ms_per_batch=full_ms,
-        solver_ms_per_batch=full_ms - feat_ms, peak_mem_gb=peak_gb,
-        init_s=init_s, first_round_moments=m_err,
-        traj_card_vs_cpu=dict(batch=2, round1_max_abs=round1,
-                              all_rounds_max_abs=float(d.max()),
-                              round1_tol=ROUND1_TOL,
-                              round1_max_abs_tf32_convs=round1_tf32,
-                              cpu_s=cpu_s),
-        lateral_m_first=out["lateral_m"][:4].tolist())
-    emit(row)
-    return row, model, gen, s8, g8
+    cpu = cpu_twin(LMS2GP, model)
+    vs_cpu = traj_vs_cpu(
+        torch, lambda: model(s8[:2], g8[:2], mode="trajectory",
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(0)),
+        lambda: cpu(s8[:2].cpu(), g8[:2].cpu(), mode="trajectory",
+                    generator=torch.Generator().manual_seed(0)),
+        ROUND1_TOL, "S2GP")
+    row = serve_row("main_path", "KITTI S2GP geo LM, sat 512, grd 256x1024, "
+                    "level 3, N_iters 5, fp32 features, bf16 map, TF32 off",
+                    window, split, init_s, first_round_moments=m_err,
+                    traj_card_vs_cpu=vs_cpu)
+    return row, forward
 
 
 def profiled(torch, fn, table_path):
@@ -719,24 +870,29 @@ def conv_device_ms(prof, keys):
     return sum(e.device_time_total for e in prof.key_averages()
                if e.key in keys) / 1e3
 
-
-def phase_profile(torch, model, gen, s8, g8, forward_ms):
-    """Device time by kernel over one batch's forward (torch.profiler).
+def eval_profile(torch, phase, fn, forward_ms, table, kernels_expected):
+    """Device time by kernel over one evaluation forward (torch.profiler).
     The profiler slows the host, so the idle share is also given against
-    ``forward_ms``, the same forward timed unprofiled."""
-    table = "chiprun_out/profile_eval_b8.txt"
+    ``forward_ms``, the same forward timed unprofiled.  Fails unless each
+    hand kernel ran as often as ``kernels_expected`` says ({short name:
+    (device kernel name, count)})."""
     with torch.no_grad():
-        wall_ms, busy_ms, kernels, prof = profiled(
-            torch, lambda: model(s8, g8, mode="test", generator=gen), table)
-    k1_ms, k1_n = device_ms(kernels, "banded_moments_kernel")
-    emit(dict(phase="profile", wall_ms=wall_ms, device_busy_ms=busy_ms,
-              device_kernel_ms_sum=sum(e.device_time_total
-                                       for e in kernels) / 1e3,
-              device_idle_share=1 - busy_ms / wall_ms,
-              device_idle_share_unprofiled=1 - busy_ms / forward_ms,
-              device_kernels=len(kernels),
-              conv_device_ms=conv_device_ms(prof, ("aten::cudnn_convolution",)),
-              k1_device_ms=k1_ms, k1_launches=k1_n, table=table))
+        wall_ms, busy_ms, kernels, prof = profiled(torch, fn, table)
+    row = dict(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_kernel_ms_sum=sum(e.device_time_total
+                                        for e in kernels) / 1e3,
+               device_idle_share=1 - busy_ms / wall_ms,
+               device_idle_share_unprofiled=1 - busy_ms / forward_ms,
+               device_kernels=len(kernels),
+               conv_device_ms=conv_device_ms(prof,
+                                             ("aten::cudnn_convolution",)))
+    for short, (name, want) in kernels_expected.items():
+        ms, count = device_ms(kernels, name)
+        row[f"{short}_device_ms"], row[f"{short}_launches"] = ms, count
+        if count != want:
+            fail(f"{phase}: {count} {name} kernels, expected {want}")
+    row["table"] = table
+    emit(row)
 
 
 def rel_l2(got, want):
@@ -912,36 +1068,44 @@ def check_limits(what, row, limits):
     if failed:
         fail(f"{what}, card vs CPU: " + "; ".join(failed))
 
-
-def phase_train(torch, dev):
-    """The flagship training step at full width, batch 8: a timed window
-    through ``make_train_step``, its split, and the card against the CPU."""
-    from highlyaccurate_tpu_torch import Config
-    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
+def train_phase(torch, dev, phase, config, family, cfg, seed, steps, extras,
+                loss_of, plain_kernels, limits, expected, **step_kw):
+    """A training step at full width, batch 8, through
+    ``make_train_step(model, cfg, **step_kw)`` on seeded images and gt
+    poses: one warm-up step, then one timed window of ``steps`` steps that
+    must launch each kernel of ``expected`` exactly 15 times per step (and
+    no other); steps/s, images/s, ms/step, a forward / backward / optimizer
+    split, peak memory, the losses; then one step of the card against a
+    CPU run of the port at batch 2 (``card_vs_cpu``) within ``limits``.
+    ``extras(n)`` gives the per-image inputs between the images and the gt
+    (camera_k, or R_FL and T_FL) for n images."""
     from highlyaccurate_tpu_torch.params import init_params
     from highlyaccurate_tpu_torch.train.state import create_train_state
     from highlyaccurate_tpu_torch.train.step import make_train_step
 
-    cfg = Config()
     t0 = time.perf_counter()
-    model = LMS2GP(cfg, device=dev)
+    model = family(cfg, device=dev)
     init_params(model, torch.Generator().manual_seed(0))
     weights = {k: v.detach().cpu().clone()
                for k, v in model.state_dict().items()}
     state = create_train_state(cfg, model)
-    step = make_train_step(model, cfg)
+    step = make_train_step(model, cfg, **step_kw)
     init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(1)
-    n = TRAIN_STEPS + 1
+    rng = np.random.RandomState(seed)
+    n = steps + 1
     sat = torch.from_numpy((rng.rand(n, BATCH, cfg.sat_size, cfg.sat_size, 3)
                             * 255).astype(np.uint8)).to(dev).float() / 255.0
     grd = torch.from_numpy((rng.rand(n, BATCH, cfg.grd_h, cfg.grd_w, 3)
                             * 255).astype(np.uint8)).to(dev).float() / 255.0
     gt = torch.from_numpy(rng.uniform(-1, 1, (n, BATCH, 3)).astype(
         np.float32)).to(dev)
+    ext = extras(BATCH)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    state, m = step(state, sat[0], grd[0], gt[0], gen)  # warm-up
+    def batch(i):
+        return (sat[i], grd[i], *ext, gt[i])
+
+    state, m = step(state, *batch(0), gen)  # warm-up
     torch.cuda.synchronize()
     first_loss = float(m["loss"])
     torch.cuda.reset_peak_memory_stats()
@@ -949,20 +1113,18 @@ def phase_train(torch, dev):
     losses = []
     t0 = time.perf_counter()
     for i in range(1, n):
-        state, m = step(state, sat[i], grd[i], gt[i], gen)
+        state, m = step(state, *batch(i), gen)
         losses.append(m["loss"])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     per_step = cfg.N_iters * cfg.n_levels
-    counts = expect_launches("S2GP training", {
-        "k2": per_step * TRAIN_STEPS, "k3": per_step * TRAIN_STEPS})
-    k2_n, k3_n = counts["k2"], counts["k3"]
+    counts = expect_launches(phase, {k: per_step * steps for k in expected})
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [first_loss] + [float(v) for v in losses]
     if not np.isfinite(losses).all():
-        fail(f"non-finite train loss: {losses}")
+        fail(f"{phase}: non-finite train loss: {losses}")
     if not all(torch.isfinite(p).all() for p in model.parameters()):
-        fail("non-finite parameters after training")
+        fail(f"{phase}: non-finite parameters after training")
 
     # forward / backward / optimizer split of one step (CUDA events; each
     # span also holds the time the device waits on the host)
@@ -972,8 +1134,7 @@ def phase_train(torch, dev):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         opt.zero_grad(set_to_none=True)
         ev[0].record()
-        out = model(sat[i], grd[i], mode="train", gt_pose=gt[i],
-                    generator=gen)
+        out = loss_of(model, batch(i), gen)
         ev[1].record()
         out.loss.backward()
         ev[2].record()
@@ -982,61 +1143,58 @@ def phase_train(torch, dev):
         torch.cuda.synchronize()
         spans.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
     fwd_ms, bwd_ms, opt_ms = np.median(np.array(spans), axis=0).tolist()
-    step_ms = wall / TRAIN_STEPS * 1e3
-    emit(dict(
-        phase="train", config="KITTI S2GP geo LM, sat 512, grd 256x1024, "
-        "level 3, N_iters 5, fp32 features, bf16 map, TF32 off, Adam",
-        batch=BATCH, steps=TRAIN_STEPS, wall_s=wall,
-        steps_per_s=TRAIN_STEPS / wall, images_per_s=TRAIN_STEPS * BATCH / wall,
-        ms_per_step=step_ms, k2_launches=k2_n, k3_launches=k3_n,
-        k2_launches_per_step=k2_n // TRAIN_STEPS,
-        k3_launches_per_step=k3_n // TRAIN_STEPS,
-        forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
-        peak_mem_gb=peak_gb, init_s=init_s, first_loss=losses[0],
-        last_loss=losses[-1], losses=losses))
+    step_ms = wall / steps * 1e3
+    row = dict(phase=phase, config=config, batch=BATCH, steps=steps,
+               wall_s=wall, steps_per_s=steps / wall,
+               images_per_s=steps * BATCH / wall, ms_per_step=step_ms)
+    for k in expected:
+        row[f"{k}_launches"] = counts[k]
+        row[f"{k}_launches_per_step"] = counts[k] // steps
+    row.update(forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
+               peak_mem_gb=peak_gb, init_s=init_s, first_loss=losses[0],
+               last_loss=losses[-1], losses=losses)
+    emit(row)
 
     # the card against a CPU run of the port at batch 2, on the initial
     # weights and the first batch's data
     b = TRAIN_CHECK_BATCH
-    row = card_vs_cpu(torch, LMS2GP, cfg, weights,
-                      (sat[0, :b], grd[0, :b], gt[0, :b]), dev, s2gp_loss,
-                      plain_k2_k3)
-    emit(dict(phase="train_card_vs_cpu", batch=b, **row, limits={
-        f"{part}.{key}": tol for (part, key), tol in TRAIN_TOL.items()}))
-    check_limits("train step", row, TRAIN_TOL)
-    return dict(k2_launches=k2_n, k3_launches=k3_n, ms_per_step=step_ms,
-                per_step=per_step,
-                model=model, state=state, step=step,
-                batch=(sat[0], grd[0], gt[0]), gen=gen)
+    check = card_vs_cpu(torch, family, cfg, weights,
+                        tuple(t[:b] for t in batch(0)), dev, loss_of,
+                        plain_kernels)
+    emit(dict(phase=f"{phase}_card_vs_cpu", batch=b, **check, limits={
+        f"{part}.{key}": tol for (part, key), tol in limits.items()}))
+    check_limits(f"{phase} step", check, limits)
+    return dict(counts, ms_per_step=step_ms, per_step=per_step, state=state,
+                step=step, batch=batch(0), gen=gen)
 
 
-def phase_profile_train(torch, train):
+def train_profile(torch, phase, train, table, kernels):
     """Device time by kernel over one train step (torch.profiler), beside
-    the unprofiled ms/step of the timed window."""
-    table = "chiprun_out/profile_train_b8.txt"
+    the unprofiled ms/step of the timed window; ``kernels`` maps each
+    short name to its device kernel, which must run 15 times."""
     state = train["state"]
 
     def one_step():
         nonlocal state
         state, _ = train["step"](state, *train["batch"], train["gen"])
 
-    wall_ms, busy_ms, kernels, prof = profiled(torch, one_step, table)
-    k2_ms, k2_n = device_ms(kernels, "banded_sample_kernel")
-    k3_ms, k3_n = device_ms(kernels, "banded_sample_backward_kernel")
-    emit(dict(phase="profile_train", wall_ms=wall_ms, device_busy_ms=busy_ms,
-              device_kernel_ms_sum=sum(e.device_time_total
-                                       for e in kernels) / 1e3,
-              device_idle_share=1 - busy_ms / wall_ms,
-              device_idle_share_unprofiled=1 - busy_ms / train["ms_per_step"],
-              device_kernels=len(kernels),
-              conv_device_ms=conv_device_ms(
-                  prof, ("aten::cudnn_convolution",
-                         "aten::convolution_backward")),
-              k2_device_ms=k2_ms, k2_launches=k2_n, k3_device_ms=k3_ms,
-              k3_launches=k3_n, table=table))
-    if (k2_n, k3_n) != (train["per_step"],) * 2:
-        fail(f"profiled step shows {k2_n} K2 and {k3_n} K3 kernels")
-
+    wall_ms, busy_ms, events, prof = profiled(torch, one_step, table)
+    row = dict(phase=phase, wall_ms=wall_ms, device_busy_ms=busy_ms,
+               device_kernel_ms_sum=sum(e.device_time_total
+                                        for e in events) / 1e3,
+               device_idle_share=1 - busy_ms / wall_ms,
+               device_idle_share_unprofiled=1 - busy_ms / train["ms_per_step"],
+               device_kernels=len(events),
+               conv_device_ms=conv_device_ms(
+                   prof, ("aten::cudnn_convolution",
+                          "aten::convolution_backward")))
+    for short, name in kernels.items():
+        row[f"{short}_device_ms"], row[f"{short}_launches"] = device_ms(
+            events, name)
+        if row[f"{short}_launches"] != train["per_step"]:
+            fail(f"{phase}: {row[f'{short}_launches']} {name} kernels")
+    row["table"] = table
+    emit(row)
 
 def phase_g2sp_main_path(torch, dev):
     """G2SP serving at full width: ``Localizer(Config(direction="G2SP"))``
@@ -1056,38 +1214,18 @@ def phase_g2sp_main_path(torch, dev):
     loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
                     camera_k=k)
     init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(2)
-    n = BATCH * G2SP_BATCHES
-    sat = (rng.rand(n, cfg.sat_size, cfg.sat_size, 3) * 255).astype(np.uint8)
-    grd = (rng.rand(n, cfg.grd_h, cfg.grd_w, 3) * 255).astype(np.uint8)
-
-    loc.predict(sat[:BATCH], grd[:BATCH])  # warm-up (cuDNN algorithm pick)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    t0 = time.perf_counter()
-    out = loc.predict(sat, grd)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    per_batch = cfg.N_iters * cfg.n_levels
-    launches = expect_launches("G2SP serving",
-                               {"k4": per_batch * G2SP_BATCHES})["k4"]
-    for key, v in out.items():
-        if v.shape != (n,) or not np.isfinite(v).all():
-            fail(f"G2SP {key}: shape {v.shape} or non-finite values")
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-
+    sat, grd = serve_images(cfg, 2, BATCH * G2SP_BATCHES)
+    window = serve_window(torch, loc, sat, grd, "G2SP serving",
+                          {"k4": cfg.N_iters * cfg.n_levels})
     model = loc.model
-    s8 = torch.from_numpy(sat[:BATCH].astype(np.float32) / 255.0).to(dev)
-    g8 = torch.from_numpy(grd[:BATCH].astype(np.float32) / 255.0).to(dev)
+    s8, g8 = first_batch(torch, dev, sat, grd)
     k8 = torch.from_numpy(k).to(dev).expand(BATCH, 3, 3).contiguous()
-    flush = torch.empty(1, device=dev)
-    with torch.no_grad():
-        feat_ms = time_cuda(torch, lambda: model.extract_features(s8, g8),
-                            flush, iters=5, warm=1)
-        full_ms = time_cuda(torch, lambda: model(s8, g8, k8, mode="test"),
-                            flush, iters=5, warm=1)
 
+    def forward():
+        return model(s8, g8, k8, mode="test")
+
+    split = split_ms(torch, model, s8, g8, forward)
+    with torch.no_grad():
         # first-round samples of every level, kernel vs plain, real features
         sf, _, gf, _ = model.extract_features(s8, g8)
         pose0 = torch.zeros(BATCH, 3, device=dev)
@@ -1104,191 +1242,194 @@ def phase_g2sp_main_path(torch, dev):
                      f"{abs_err} abs, {rel_err} rel")
             s_err.append(dict(level=lvl, max_abs_err=abs_err,
                               max_rel_err=rel_err))
+    cpu = cpu_twin(LMG2SP, model)
+    vs_cpu = traj_vs_cpu(
+        torch, lambda: model(s8[:2], g8[:2], k8[:2], mode="trajectory"),
+        lambda: cpu(s8[:2].cpu(), g8[:2].cpu(), k8[:2].cpu(),
+                    mode="trajectory"), G2SP_ROUND1_TOL, "G2SP")
+    row = serve_row("g2sp_main_path", "KITTI G2SP geo LM, sat 512, grd "
+                    "256x1024, level 3, N_iters 5, default K, fp32 features, "
+                    "bf16 map, TF32 off", window, split, init_s,
+                    col_start=model._col_start, first_round_samples=s_err,
+                    traj_card_vs_cpu=vs_cpu)
+    return row, forward
 
-        cpu = LMG2SP(cfg, device="cpu")
-        cpu.load_state_dict({key: v.cpu()
-                             for key, v in model.state_dict().items()})
-        t0 = time.perf_counter()
-        tc = cpu(s8[:2].cpu(), g8[:2].cpu(), k8[:2].cpu(), mode="trajectory")
-        cpu_s = time.perf_counter() - t0
-
-        def card_traj():
-            return model(s8[:2], g8[:2], k8[:2], mode="trajectory")
-        tg = card_traj()
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            tt = card_traj()
-        finally:
-            torch.backends.cudnn.allow_tf32 = False
-    tc, tg, tt = (torch.stack(t, -1).cpu().numpy() for t in (tc, tg, tt))
-    if not all(np.isfinite(t).all() for t in (tc, tg, tt)):
-        fail("non-finite G2SP trajectory")
-    d = np.abs(tg - tc)
-    round1 = float(d[:, 0, 0].max())
-    round1_tf32 = float(np.abs(tt - tc)[:, 0, 0].max())
-    if round1 > G2SP_ROUND1_TOL:
-        fail(f"G2SP round-1 pose differs between card and CPU by {round1}")
-    row = dict(
-        phase="g2sp_main_path", config="KITTI G2SP geo LM, sat 512, grd "
-        "256x1024, level 3, N_iters 5, default K, fp32 features, bf16 map, "
-        "TF32 off", batch=BATCH, batches=G2SP_BATCHES, images=n,
-        wall_s=wall, frames_per_s=n / wall,
-        ms_per_batch=wall / G2SP_BATCHES * 1e3, k4_launches=launches,
-        k4_launches_per_batch=launches // G2SP_BATCHES,
-        features_ms_per_batch=feat_ms, forward_ms_per_batch=full_ms,
-        solver_ms_per_batch=full_ms - feat_ms, peak_mem_gb=peak_gb,
-        init_s=init_s, col_start=model._col_start,
-        first_round_samples=s_err,
-        traj_card_vs_cpu=dict(batch=2, round1_max_abs=round1,
-                              all_rounds_max_abs=float(d.max()),
-                              round1_tol=G2SP_ROUND1_TOL,
-                              round1_max_abs_tf32_convs=round1_tf32,
-                              cpu_s=cpu_s),
-        lateral_m_first=out["lateral_m"][:4].tolist())
-    emit(row)
-    return row, model, (s8, g8, k8)
-
-
-def phase_g2sp_profile(torch, model, batch, forward_ms):
-    """Device time by kernel over one G2SP batch's forward."""
-    table = "chiprun_out/profile_g2sp_eval_b8.txt"
-    with torch.no_grad():
-        wall_ms, busy_ms, kernels, prof = profiled(
-            torch, lambda: model(*batch, mode="test"), table)
-    k4_ms, k4_n = device_ms(kernels, "projline_sample_kernel")
-    emit(dict(phase="profile_g2sp", wall_ms=wall_ms, device_busy_ms=busy_ms,
-              device_kernel_ms_sum=sum(e.device_time_total
-                                       for e in kernels) / 1e3,
-              device_idle_share=1 - busy_ms / wall_ms,
-              device_idle_share_unprofiled=1 - busy_ms / forward_ms,
-              device_kernels=len(kernels),
-              conv_device_ms=conv_device_ms(prof, ("aten::cudnn_convolution",)),
-              k4_device_ms=k4_ms, k4_launches=k4_n, table=table))
-    if k4_n != model.cfg.N_iters * model.cfg.n_levels:
-        fail(f"profiled G2SP forward shows {k4_n} K4 kernels")
-
-
-def phase_g2sp_train(torch, dev):
-    """The G2SP training step at full width, batch 8, through
-    ``make_train_step(model, cfg)`` with the default K: a timed window (K4
-    and K5 exactly 15 times each per step, no other kernel), its split,
-    and the card against the CPU."""
+def phase_g2sp_pixmom_main_path(torch, dev):
+    """G2SP serving with the fused pixel moments
+    (``Config(direction="G2SP", g2sp_pixel_moments=1)``, the default K):
+    the weights and images of g2sp_main_path, K6 exactly 15 times per batch
+    and no other kernel; the first-round K6 moments of every level on the
+    real features against the plain version; the poses against the K4 path
+    on the same card, weights and inputs; the trajectory of the card
+    against a CPU run of the port at batch 2."""
     from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.inference import Localizer
     from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
     from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
-    from highlyaccurate_tpu_torch.params import init_params
-    from highlyaccurate_tpu_torch.train.state import create_train_state
-    from highlyaccurate_tpu_torch.train.step import make_train_step
+    from highlyaccurate_tpu_torch.ops import projline as tpl
 
-    cfg = Config(direction="G2SP")
+    cfg = Config(direction="G2SP", g2sp_pixel_moments=1)
+    k = _scaled_default_k(cfg)
     t0 = time.perf_counter()
-    model = LMG2SP(cfg, device=dev)
-    init_params(model, torch.Generator().manual_seed(0))
-    weights = {key: v.detach().cpu().clone()
-               for key, v in model.state_dict().items()}
-    state = create_train_state(cfg, model)
-    step = make_train_step(model, cfg)
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                    camera_k=k)
     init_s = time.perf_counter() - t0
-    rng = np.random.RandomState(3)
-    n = G2SP_TRAIN_STEPS + 1
-    sat = torch.from_numpy((rng.rand(n, BATCH, cfg.sat_size, cfg.sat_size, 3)
-                            * 255).astype(np.uint8)).to(dev).float() / 255.0
-    grd = torch.from_numpy((rng.rand(n, BATCH, cfg.grd_h, cfg.grd_w, 3)
-                            * 255).astype(np.uint8)).to(dev).float() / 255.0
-    gt = torch.from_numpy(rng.uniform(-1, 1, (n, BATCH, 3)).astype(
-        np.float32)).to(dev)
-    k = torch.from_numpy(_scaled_default_k(cfg)).to(dev).expand(
-        BATCH, 3, 3).contiguous()
+    sat, grd = serve_images(cfg, 2, BATCH * G2SP_BATCHES)
+    window = serve_window(torch, loc, sat, grd, "G2SP pixel-moment serving",
+                          {"k6": cfg.N_iters * cfg.n_levels})
+    model = loc.model
+    s8, g8 = first_batch(torch, dev, sat, grd)
+    k8 = torch.from_numpy(k).to(dev).expand(BATCH, 3, 3).contiguous()
 
-    state, m = step(state, sat[0], grd[0], k, gt[0], None)  # warm-up
-    torch.cuda.synchronize()
-    first_loss = float(m["loss"])
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    losses = []
+    def forward():
+        return model(s8, g8, k8, mode="test")
+
+    split = split_ms(torch, model, s8, g8, forward)
+    k4_model = LMG2SP(Config(direction="G2SP"), device=dev)
+    k4_model.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        sf, _, gf, _ = model.extract_features(s8, g8)
+        pose0 = torch.zeros(BATCH, 3, device=dev)
+        m_err = []
+        for lvl, slot in enumerate(model._slots):
+            A, _, _, j0, _, _, coefs = g2sp_lines(torch, cfg, slot, pose0, k8)
+            grd_k = gf[lvl].to(torch.bfloat16)
+            tgt = sf[lvl][:, :, j0:].transpose(1, 2)
+            abs_err, rel_err, ok = lane_error(
+                tpl.projline_pixmom(grd_k, tgt, coefs, A),
+                tpl.projline_pixmom_reference(grd_k, tgt, coefs, A))
+            if not ok:
+                fail(f"G2SP first-round moments disagree at level {lvl}: "
+                     f"{abs_err} abs, {rel_err} rel")
+            m_err.append(dict(level=lvl, max_abs_err=abs_err,
+                              max_rel_err=rel_err))
+
+        # K6 against the K4 path: the same samples, channel sums in another
+        # order
+        d = (torch.stack(model(s8, g8, k8, mode="trajectory"), -1)
+             - torch.stack(k4_model(s8, g8, k8, mode="trajectory"), -1)).abs()
+    del k4_model
+    vs_k4 = dict(batch=BATCH, round1_max_abs=float(d[:, 0, 0].max()),
+                 final_max_abs=float(d[:, -1, -1].max()),
+                 all_rounds_max_abs=float(d.max()),
+                 round1_tol=PIXMOM_VS_K4_TOL[0],
+                 final_tol=PIXMOM_VS_K4_TOL[1])
+    if (vs_k4["round1_max_abs"] > PIXMOM_VS_K4_TOL[0]
+            or vs_k4["final_max_abs"] > PIXMOM_VS_K4_TOL[1]):
+        fail(f"G2SP K6 path against the K4 path: {vs_k4}")
+    cpu = cpu_twin(LMG2SP, model)
+    vs_cpu = traj_vs_cpu(
+        torch, lambda: model(s8[:2], g8[:2], k8[:2], mode="trajectory"),
+        lambda: cpu(s8[:2].cpu(), g8[:2].cpu(), k8[:2].cpu(),
+                    mode="trajectory"), G2SP_ROUND1_TOL, "G2SP K6")
+    row = serve_row("g2sp_pixmom_main_path", "KITTI G2SP geo LM, "
+                    "g2sp_pixel_moments=1, sat 512, grd 256x1024, level 3, "
+                    "N_iters 5, default K, fp32 features, bf16 map, TF32 off",
+                    window, split, init_s, first_round_moments=m_err,
+                    poses_vs_k4_path=vs_k4, traj_card_vs_cpu=vs_cpu)
+    return row, forward
+
+
+def ford_rig(torch, n):
+    """The Ford data's front-left rig, camera -> body (R_FL [n, 3, 3], T_FL
+    [n, 3] on the host, where the model reads its kernel layout): the
+    quaternion and translation of its calibration
+    (cameraFrontLeft_body.yaml)."""
+    from highlyaccurate_tpu_torch.geometry.ford import qvec2rotmat
+    R = qvec2rotmat(FORD_QVEC).astype(np.float32)
+    T = np.asarray(FORD_T_FL, np.float32)
+    return (torch.from_numpy(R).expand(n, 3, 3).contiguous(),
+            torch.from_numpy(T).expand(n, 3).contiguous())
+
+
+def ford_loss(model, batch, generator):
+    """The Ford training forward on batch = (sat, grd, R_FL, T_FL, gt)."""
+    sat, grd, R, T, gt = batch
+    return model(sat, grd, FORD_SIDE_M, R, T, mode="train", gt_pose=gt,
+                 generator=generator)
+
+
+def phase_ford_main_path(torch, dev):
+    """Ford serving at full width (``Config()``, the Ford CLI's defaults):
+    ``Localizer`` with the Ford rig and a 512 x 0.22 m patch predicts a
+    window of seeded batches (K1 exactly 15 times per batch, no other
+    kernel); the kernel layout the rig takes and the share of samples it
+    keeps in round 1, beside the JAX package's layout; the first-round
+    moments of every level on the real features against the plain version;
+    the trajectory of the card against a CPU run at batch 2."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.inference import Localizer
+    from highlyaccurate_tpu_torch.models.ford import (LMS2GPFord,
+                                                      kernel_layout)
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+
+    cfg = Config()
+    R8, T8 = ford_rig(torch, BATCH)
     t0 = time.perf_counter()
-    for i in range(1, n):
-        state, m = step(state, sat[i], grd[i], k, gt[i], None)
-        losses.append(m["loss"])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    per_step = cfg.N_iters * cfg.n_levels
-    counts = expect_launches("G2SP training", {
-        "k4": per_step * G2SP_TRAIN_STEPS, "k5": per_step * G2SP_TRAIN_STEPS})
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [first_loss] + [float(v) for v in losses]
-    if not np.isfinite(losses).all():
-        fail(f"non-finite G2SP train loss: {losses}")
-    if not all(torch.isfinite(p).all() for p in model.parameters()):
-        fail("non-finite parameters after G2SP training")
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                    ford_extrinsics=(R8[0].numpy(), T8[0].numpy()),
+                    ford_side_m=FORD_SIDE_M)
+    init_s = time.perf_counter() - t0
+    sat, grd = serve_images(cfg, 4, BATCH * FORD_BATCHES)
+    window = serve_window(torch, loc, sat, grd, "Ford serving",
+                          {"k1": cfg.N_iters * cfg.n_levels})
+    model, gen = loc.model, loc._generator
+    s8, g8 = first_batch(torch, dev, sat, grd)
 
-    opt = state.optimizer
-    spans = []
-    for i in range(3):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-        opt.zero_grad(set_to_none=True)
-        ev[0].record()
-        out = model(sat[i], grd[i], k, mode="train", gt_pose=gt[i])
-        ev[1].record()
-        out.loss.backward()
-        ev[2].record()
-        opt.step()
-        ev[3].record()
-        torch.cuda.synchronize()
-        spans.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
-    fwd_ms, bwd_ms, opt_ms = np.median(np.array(spans), axis=0).tolist()
-    step_ms = wall / G2SP_TRAIN_STEPS * 1e3
-    emit(dict(
-        phase="g2sp_train", config="KITTI G2SP geo LM, sat 512, grd "
-        "256x1024, level 3, N_iters 5, default K, fp32 features, bf16 map, "
-        "TF32 off, Adam", batch=BATCH, steps=G2SP_TRAIN_STEPS, wall_s=wall,
-        steps_per_s=G2SP_TRAIN_STEPS / wall,
-        images_per_s=G2SP_TRAIN_STEPS * BATCH / wall, ms_per_step=step_ms,
-        k4_launches=counts["k4"], k5_launches=counts["k5"],
-        k4_launches_per_step=counts["k4"] // G2SP_TRAIN_STEPS,
-        k5_launches_per_step=counts["k5"] // G2SP_TRAIN_STEPS,
-        forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
-        peak_mem_gb=peak_gb, init_s=init_s, first_loss=losses[0],
-        last_loss=losses[-1], losses=losses))
+    def forward():
+        return model(s8, g8, FORD_SIDE_M, R8, T8, mode="test", generator=gen)
 
-    b = TRAIN_CHECK_BATCH
-    row = card_vs_cpu(torch, LMG2SP, cfg, weights,
-                      (sat[0, :b], grd[0, :b], k[:b], gt[0, :b]), dev,
-                      g2sp_loss, plain_k4_k5)
-    emit(dict(phase="g2sp_train_card_vs_cpu", batch=b, **row, limits={
-        f"{part}.{key}": tol for (part, key), tol in G2SP_TRAIN_TOL.items()}))
-    check_limits("G2SP train step", row, G2SP_TRAIN_TOL)
-    return dict(k5_launches=counts["k5"], ms_per_step=step_ms,
-                per_step=per_step, model=model, state=state, step=step,
-                batch=(sat[0], grd[0], k, gt[0]))
-
-
-def phase_g2sp_profile_train(torch, train):
-    """Device time by kernel over one G2SP train step."""
-    table = "chiprun_out/profile_g2sp_train_b8.txt"
-    state = train["state"]
-
-    def one_step():
-        nonlocal state
-        state, _ = train["step"](state, *train["batch"], None)
-
-    wall_ms, busy_ms, kernels, prof = profiled(torch, one_step, table)
-    k4_ms, k4_n = device_ms(kernels, "projline_sample_kernel")
-    k5_ms, k5_n = device_ms(kernels, "projline_sample_backward_kernel")
-    emit(dict(phase="profile_g2sp_train", wall_ms=wall_ms,
-              device_busy_ms=busy_ms,
-              device_kernel_ms_sum=sum(e.device_time_total
-                                       for e in kernels) / 1e3,
-              device_idle_share=1 - busy_ms / wall_ms,
-              device_idle_share_unprofiled=1 - busy_ms / train["ms_per_step"],
-              device_kernels=len(kernels),
-              conv_device_ms=conv_device_ms(
-                  prof, ("aten::cudnn_convolution",
-                         "aten::convolution_backward")),
-              k4_device_ms=k4_ms, k4_launches=k4_n, k5_device_ms=k5_ms,
-              k5_launches=k5_n, table=table))
-    if (k4_n, k5_n) != (train["per_step"],) * 2:
-        fail(f"profiled G2SP step shows {k4_n} K4 and {k5_n} K5 kernels")
+    split = split_ms(torch, model, s8, g8, forward)
+    with torch.no_grad():
+        swap = kernel_layout(R8)
+        sf, _, gf, _ = model.extract_features(s8, g8)
+        pose0 = torch.zeros(BATCH, 3, device=dev)
+        levels = []
+        for lvl, slot in enumerate(model._slots):
+            A = sf[lvl].shape[1]
+            mask = getattr(model, f"mask_{slot}")
+            W = mask.shape[1]
+            H = gf[lvl].shape[1]
+            rows = gf[lvl][:, H // 2:].contiguous()
+            kept = {}
+            for layout in (True, swap):   # the JAX package's, then this one
+                uv01, _, _ = model._line_uv(
+                    pose0, slot, A, (R8.to(dev), T8.to(dev), FORD_SIDE_M,
+                                     layout))
+                uvk = uv01.flip(-1) if layout else uv01
+                coefs = bw.pack_row_coefs(uvk[:, :, 0], uvk[:, :, 1], A,
+                                          bw.default_rb(A), W)
+                kept[layout] = float(
+                    (bw._line_cells(coefs, W, A)[4] * mask).mean())
+            sat_k = sf[lvl].transpose(1, 2) if swap else sf[lvl]
+            M, Mp = (fn(sat_k, rows, mask, uvk[:, :, 0], uvk[:, :, 1],
+                        RB=bw.default_rb(A), bf16_map=True)
+                     for fn in (bw.banded_moments,
+                                bw.banded_moments_reference))
+            abs_err, rel_err, ok = moment_error(M, Mp)
+            if not ok:
+                fail(f"Ford first-round moments disagree at level {lvl}: "
+                     f"{abs_err} abs, {rel_err} rel")
+            levels.append(dict(level=lvl, kept_share=kept[swap],
+                               kept_share_jax_layout=kept[True],
+                               max_abs_err=abs_err, max_rel_err=rel_err))
+    if min(lv["kept_share"] for lv in levels) <= 0:
+        fail(f"Ford round 1 samples nothing at some level: {levels}")
+    cpu = cpu_twin(LMS2GPFord, model)
+    vs_cpu = traj_vs_cpu(
+        torch, lambda: model(
+            s8[:2], g8[:2], FORD_SIDE_M, R8[:2], T8[:2], mode="trajectory",
+            generator=torch.Generator(device=dev).manual_seed(0)),
+        lambda: cpu(s8[:2].cpu(), g8[:2].cpu(), FORD_SIDE_M, R8[:2].cpu(),
+                    T8[:2].cpu(), mode="trajectory",
+                    generator=torch.Generator().manual_seed(0)),
+        FORD_ROUND1_TOL, "Ford")
+    row = serve_row("ford_main_path", "Ford LM_S2GP_Ford geo LM, sat 512 "
+                    "(112.64 m), grd 256x1024, level 3, N_iters 5, Ford FL "
+                    "rig, fp32 features, bf16 map, TF32 off", window, split,
+                    init_s, kernel_layout_swapped=swap, first_round=levels,
+                    traj_card_vs_cpu=vs_cpu)
+    return row, forward
 
 
 def kernel_entry(name, source, replaces, launches, rows):
@@ -1305,12 +1446,16 @@ def kernel_entry(name, source, replaces, launches, rows):
                   else "operations"),
         library_ms=None)
 
-
 def main():
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
     try:
+        from highlyaccurate_tpu_torch import Config
+        from highlyaccurate_tpu_torch.models.ford import LMS2GPFord
+        from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
+        from highlyaccurate_tpu_torch.models.lm_s2gp import (
+            LMS2GP, _scaled_default_k)
         from highlyaccurate_tpu_torch.ops import _build
     except ImportError as e:
         fail(f"the port is not importable from here ({e}); run from the "
@@ -1319,6 +1464,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     gpu = gpu_line()
+    t_start = time.perf_counter()
 
     t0 = time.perf_counter()
     libs = _build.build()
@@ -1329,38 +1475,89 @@ def main():
     shapes = phase_kernels(torch, dev, flush)
     shapes.update(phase_g2sp_kernels(torch, dev, flush))
     del flush
-    main_row, model, gen, s8, g8 = phase_main_path(torch, dev)
-    phase_profile(torch, model, gen, s8, g8,
-                  main_row["forward_ms_per_batch"])
-    del model, gen, s8, g8
-    torch.cuda.empty_cache()
-    train = phase_train(torch, dev)
-    phase_profile_train(torch, train)
-    del train["model"], train["state"], train["step"], train["batch"]
-    torch.cuda.empty_cache()
-    g2sp_row, model, batch = phase_g2sp_main_path(torch, dev)
-    phase_g2sp_profile(torch, model, batch,
-                       g2sp_row["forward_ms_per_batch"])
-    del model, batch
-    torch.cuda.empty_cache()
-    g2sp_train = phase_g2sp_train(torch, dev)
-    phase_g2sp_profile_train(torch, g2sp_train)
+    k1, k2, k3 = (("banded_moments_kernel", 15), "banded_sample_kernel",
+                  "banded_sample_backward_kernel")
+    k4, k5 = "projline_sample_kernel", "projline_sample_backward_kernel"
+    kitti = ("level 3, N_iters 5, fp32 features, bf16 map, TF32 off, Adam")
 
-    # library_ms is null for all five: no single PyTorch call computes
+    row, forward = phase_main_path(torch, dev)
+    eval_profile(torch, "profile", forward, row["forward_ms_per_batch"],
+                 "chiprun_out/profile_eval_b8.txt", {"k1": k1})
+    k1_launches = row["k1_launches"]
+    del forward
+    torch.cuda.empty_cache()
+    train = train_phase(
+        torch, dev, "train", f"KITTI S2GP geo LM, sat 512, grd 256x1024, "
+        f"{kitti}", LMS2GP, Config(), 1, TRAIN_STEPS, lambda n: (),
+        s2gp_loss, plain_k2_k3, TRAIN_TOL, ("k2", "k3"))
+    train_profile(torch, "profile_train", train,
+                  "chiprun_out/profile_train_b8.txt", {"k2": k2, "k3": k3})
+    k2_launches, k3_launches = train["k2"], train["k3"]
+    del train
+    torch.cuda.empty_cache()
+
+    row, forward = phase_g2sp_main_path(torch, dev)
+    eval_profile(torch, "profile_g2sp", forward, row["forward_ms_per_batch"],
+                 "chiprun_out/profile_g2sp_eval_b8.txt", {"k4": (k4, 15)})
+    k4_launches = row["k4_launches"]
+    del forward
+    torch.cuda.empty_cache()
+    g2sp = Config(direction="G2SP")
+    k8 = torch.from_numpy(_scaled_default_k(g2sp)).to(dev)
+    train = train_phase(
+        torch, dev, "g2sp_train", f"KITTI G2SP geo LM, sat 512, grd "
+        f"256x1024, default K, {kitti}", LMG2SP, g2sp, 3, G2SP_TRAIN_STEPS,
+        lambda n: (k8.expand(n, 3, 3).contiguous(),), g2sp_loss, plain_k4_k5,
+        G2SP_TRAIN_TOL, ("k4", "k5"))
+    train_profile(torch, "profile_g2sp_train", train,
+                  "chiprun_out/profile_g2sp_train_b8.txt",
+                  {"k4": k4, "k5": k5})
+    k5_launches = train["k5"]
+    del train
+    torch.cuda.empty_cache()
+
+    row, forward = phase_g2sp_pixmom_main_path(torch, dev)
+    eval_profile(torch, "profile_g2sp_pixmom", forward,
+                 row["forward_ms_per_batch"],
+                 "chiprun_out/profile_g2sp_pixmom_eval_b8.txt",
+                 {"k6": ("projline_pixmom_kernel", 15), "k4": (k4, 0)})
+    k6_launches = row["k6_launches"]
+    del forward
+    torch.cuda.empty_cache()
+
+    row, forward = phase_ford_main_path(torch, dev)
+    eval_profile(torch, "profile_ford", forward, row["forward_ms_per_batch"],
+                 "chiprun_out/profile_ford_eval_b8.txt", {"k1": k1})
+    del forward
+    torch.cuda.empty_cache()
+    train = train_phase(
+        torch, dev, "ford_train", f"Ford LM_S2GP_Ford geo LM, sat 512 "
+        f"(112.64 m), grd 256x1024, Ford FL rig, {kitti}", LMS2GPFord,
+        Config(), 5, FORD_TRAIN_STEPS, lambda n: ford_rig(torch, n),
+        ford_loss, plain_k2_k3, FORD_TRAIN_TOL, ("k2", "k3"),
+        ford_side_m=FORD_SIDE_M)
+    train_profile(torch, "profile_ford_train", train,
+                  "chiprun_out/profile_ford_train_b8.txt",
+                  {"k2": k2, "k3": k3})
+    del train
+    emit(dict(phase="total", seconds=time.perf_counter() - t_start))
+
+    # library_ms is null for all six: no single PyTorch call computes
     # them (grid_sample gives neither the derivatives, nor the edge quirk,
-    # nor the in-front mask of the projective lines)
+    # nor the in-front mask of the projective lines, nor K6's moments)
     emit({"kernels": [
         kernel_entry("banded_moments", "banded_moments.cu", 704,
-                     main_row["k1_launches"], shapes["banded_moments"]),
+                     k1_launches, shapes["banded_moments"]),
         kernel_entry("banded_sample", "banded_sampler.cu", 1046,
-                     train["k2_launches"], shapes["banded_sample"]),
+                     k2_launches, shapes["banded_sample"]),
         kernel_entry("banded_sample_backward", "banded_sampler.cu", 1147,
-                     train["k3_launches"], shapes["banded_sample_backward"]),
+                     k3_launches, shapes["banded_sample_backward"]),
         kernel_entry("projline_sample", "projline_sampler.cu", 1821,
-                     g2sp_row["k4_launches"], shapes["projline_sample"]),
+                     k4_launches, shapes["projline_sample"]),
         kernel_entry("projline_sample_backward", "projline_sampler.cu", 1963,
-                     g2sp_train["k5_launches"],
-                     shapes["projline_sample_backward"]),
+                     k5_launches, shapes["projline_sample_backward"]),
+        kernel_entry("projline_pixmom", "projline_sampler.cu", 2190,
+                     k6_launches, shapes["projline_pixmom"]),
     ]})
     print(f"gpu: {gpu}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

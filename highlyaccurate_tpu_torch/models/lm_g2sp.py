@@ -13,13 +13,18 @@ W = A satellite rows), takes the per-pixel d(uv)/d(pose) from
 ``g2sp_uv_jac`` and solves ``lm_update_implicit_pixel`` against the
 satellite features of those columns (residual grd_proj - sat, no feature
 normalization, no re-init, damping used raw).  Evaluation samples a bf16
-copy of each ground map made once per forward; training goes through the
-differentiable sampler (K4 with dxy forward, K5 backward), whose bf16 cast
-sits inside the autograd function, and ``loss_func`` method 0 scores the
-trajectory.
+copy of each ground map made once per forward; with ``g2sp_pixel_moments``
+it runs K6 instead of K4, which contracts the samples with the target into
+five moments per pixel, and solves ``lm_update_pixel_moments`` (JAX
+``lm_g2sp.py:235-255``).  Training keeps K4 whatever that flag says: it
+goes through the differentiable sampler (K4 with dxy forward, K5
+backward), whose bf16 cast sits inside the autograd function, and
+``loss_func`` method 0 scores the trajectory.
 
 The samples stay in line order; the satellite target is passed as a
-transposed view of the same columns, so nothing is copied to sat-grid order.
+transposed view of the same columns, made once per level per forward
+(outside the rounds), so nothing is copied to sat-grid order: K6 takes the
+view's strides.
 
 ``check_supported`` refuses every option this port does not carry for G2SP
 with ``NotImplementedError``; ``loss_method`` other than 0 raises
@@ -40,11 +45,13 @@ from highlyaccurate_tpu_torch.losses.losses import loss_func
 from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.projline import (pack_projline_coefs,
+                                                   projline_pixmom,
                                                    projline_sample,
                                                    projline_sample_forward,
                                                    projline_supported)
 from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
-                                                     lm_update_implicit_pixel)
+                                                     lm_update_implicit_pixel,
+                                                     lm_update_pixel_moments)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 SLOT_CHANNELS = (256, 128, 64, 16)  # VGGUnet feature channels per slot
@@ -60,7 +67,6 @@ def check_supported(cfg: Config):
         (bool(cfg.using_weight), "using_weight"),
         (not cfg.banded_bf16_map, "banded_bf16_map=0"),
         (not cfg.use_banded_warp, "use_banded_warp=0"),
-        (bool(cfg.g2sp_pixel_moments), "g2sp_pixel_moments=1"),
         (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
         (cfg.compute_dtype != "float32",
          f"compute_dtype={cfg.compute_dtype!r}"),
@@ -163,14 +169,18 @@ class LMG2SP(nn.Module):
         coefs = pack_projline_coefs(project(getattr(self, f"x0_{slot}")),
                                     project(getattr(self, f"dx_{slot}")),
                                     Hg, Wg, Hg, A)
+        _, duv, _ = geom.g2sp_uv_jac(pose, getattr(self, f"lines_{slot}"),
+                                     camera_k, Hg, Wg, cfg.grd_h, cfg.grd_w,
+                                     *ranges)             # [B, V, A, 2, 3]
+        if not train and cfg.g2sp_pixel_moments:
+            pm = projline_pixmom(grd_map, target, coefs, A)  # [B, V, A, 5]
+            return lm_update_pixel_moments(pose, pm, duv, self.damping,
+                                           self.lm_cfg)
         if train:
             out, dx, dy = projline_sample(grd_map, coefs, W=A)
         else:
             out, dx, dy = projline_sample_forward(grd_map, coefs, A,
                                                   with_dxy=False)
-        _, duv, _ = geom.g2sp_uv_jac(pose, getattr(self, f"lines_{slot}"),
-                                     camera_k, Hg, Wg, cfg.grd_h, cfg.grd_w,
-                                     *ranges)             # [B, V, A, 2, 3]
         return lm_update_implicit_pixel(pose, out, dx, dy, target, duv,
                                         self.damping, self.lm_cfg)
 

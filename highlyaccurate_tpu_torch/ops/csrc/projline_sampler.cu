@@ -1,5 +1,6 @@
-// K4 and K5: the projective-line sampler of the G2SP direction and its map
-// gradient (Hopper, sm_90a).
+// K4, K5 and K6: the projective-line sampler of the G2SP direction, its map
+// gradient, and the sampler fused with the per-pixel LM moments (Hopper,
+// sm_90a).
 //
 // K4 replaces the Pallas TPU kernel family behind _raw_projline_forward
 // (highlyaccurate_tpu/ops/pallas/banded_warp.py:1821; bodies
@@ -52,6 +53,31 @@
 // than K3's; each map cell's sum is reassociated from run to run.
 // Tolerance against the plain version: |err| <= 1e-5 x max|plain| + 1e-6
 // (a few fp32 ulps of the largest partial sums), checked in chip_smoke.py.
+//
+// K6: K4's samples contracted over the channels into the per-pixel moments
+// of the G2SP LM update (G2SP evaluation with g2sp_pixel_moments=1).  It
+// replaces _raw_projline_pixmom (banded_warp.py:2190; bodies
+// _kernel_projline_pixmom_blocked :2162 and _kernel_projline_pixmom_fullmap
+// :2141, contraction _pixmom_from_accs :2117).  For each kept sample (b, v,
+// u), with out, dx, dy as K4 computes them from a bf16 map and the target
+// row tgt[b, v, u, :] (fp32):
+//   r = out - tgt;  sxx = sum_c dx*dx, sxy = sum_c dx*dy, syy = sum_c dy*dy,
+//   rx = sum_c dx*r, ry = sum_c dy*r   -> pm [B, V, W, 5] fp32
+// (the TPU kernel's 16 lanes hold these five and zeros).  A sample the mask
+// drops writes zeros and never reads tgt.  Its coordinates come from
+// projline_cell, the function K4 uses, so the two paths sample the same
+// cells and differ only in the order of the channel sums.
+//
+// What bounds K6 on the H100: bytes.  It reads the map corners and the
+// target rows of the kept samples (23-27% at the flagship) and writes 20
+// bytes per sample, against ~30 flop per kept (sample, channel), so it
+// moves a fraction of the 3 x 113 MB K4 writes at slot 2.  Design: one warp
+// per sample, 8 consecutive samples of one line per block.  Each lane walks
+// the channel pairs lane, lane + 32, ... (bf16x2 corner loads and float2
+// target loads, coalesced along the channels), keeps the five sums in
+// registers, and the warp reduces them with __shfl_xor_sync; lanes 0-4
+// write one moment each.  No atomics, no shared memory.  Tolerance against
+// the plain version: |err| <= 1e-5 x max|plain lane| + 1e-6 per lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -60,6 +86,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kCoefs = 16;
+constexpr int kPixmom = 5;                    // sxx sxy syy rx ry
+constexpr int kPixmomSamples = kThreads / 32;  // one warp per sample
 
 __device__ __forceinline__ float2 load_pair(const __nv_bfloat16* p) {
   return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
@@ -179,6 +207,70 @@ projline_sample_backward_kernel(const float* __restrict__ coefs,
   atomicAdd(pd + 1, go.y * wxb * gyb + gx.y * gyb + gy.y * wxb);
 }
 
+__global__ void __launch_bounds__(kThreads)
+projline_pixmom_kernel(const float* __restrict__ coefs,
+                       const __nv_bfloat16* __restrict__ map,
+                       const float* __restrict__ tgt, float* __restrict__ pm,
+                       int V, int W, int AY, int AX, int C, int chunks,
+                       long long map_sb, long long map_sy, long long map_sx,
+                       long long tgt_sb, long long tgt_sv, long long tgt_su) {
+  const int row = blockIdx.x / chunks;  // b * V + v
+  const int u = (blockIdx.x - row * chunks) * kPixmomSamples +
+                static_cast<int>(threadIdx.x >> 5);
+  if (u >= W) return;  // the whole warp leaves together
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int b = row / V;
+  const int v = row - b * V;
+
+  int x0 = 0, y0 = 0;
+  float fx, fy;
+  const bool keep = projline_cell(
+      coefs + static_cast<long long>(row) * kCoefs, u, AY, AX, x0, y0, fx,
+      fy);
+  float sxx = 0.f, sxy = 0.f, syy = 0.f, rx = 0.f, ry = 0.f;
+  if (keep) {
+    const __nv_bfloat16* p00 = map + b * map_sb + y0 * map_sy + x0 * map_sx;
+    const float* t = tgt + b * tgt_sb + v * tgt_sv + u * tgt_su;
+    const float wxa = 1.f - fx, wxb = fx, gya = 1.f - fy, gyb = fy;
+    for (int c = 2 * lane; c < C; c += 64) {
+      const float2 a = load_pair(p00 + c), bb = load_pair(p00 + map_sx + c);
+      const float2 cc = load_pair(p00 + map_sy + c);
+      const float2 d = load_pair(p00 + map_sy + map_sx + c);
+      const float2 tg = load_pair(t + c);
+      const float ox = gya * (wxa * a.x + wxb * bb.x) +
+                       gyb * (wxa * cc.x + wxb * d.x);
+      const float oy = gya * (wxa * a.y + wxb * bb.y) +
+                       gyb * (wxa * cc.y + wxb * d.y);
+      const float dxx = gya * (bb.x - a.x) + gyb * (d.x - cc.x);
+      const float dxy = gya * (bb.y - a.y) + gyb * (d.y - cc.y);
+      const float dyx = wxa * (cc.x - a.x) + wxb * (d.x - bb.x);
+      const float dyy = wxa * (cc.y - a.y) + wxb * (d.y - bb.y);
+      const float r0 = ox - tg.x, r1 = oy - tg.y;
+      sxx += dxx * dxx + dxy * dxy;
+      sxy += dxx * dyx + dxy * dyy;
+      syy += dyx * dyx + dyy * dyy;
+      rx += dxx * r0 + dxy * r1;
+      ry += dyx * r0 + dyy * r1;
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    sxx += __shfl_xor_sync(0xffffffffu, sxx, off);
+    sxy += __shfl_xor_sync(0xffffffffu, sxy, off);
+    syy += __shfl_xor_sync(0xffffffffu, syy, off);
+    rx += __shfl_xor_sync(0xffffffffu, rx, off);
+    ry += __shfl_xor_sync(0xffffffffu, ry, off);
+  }
+  if (lane < kPixmom) {
+    const float val = lane == 0   ? sxx
+                      : lane == 1 ? sxy
+                      : lane == 2 ? syy
+                      : lane == 3 ? rx
+                                  : ry;
+    pm[(static_cast<long long>(row) * W + u) * kPixmom + lane] = val;
+  }
+}
+
 unsigned grid_size(int B, int V, int W, int C, int* chunks) {
   *chunks = (W * (C / 2) + kThreads - 1) / kThreads;
   return static_cast<unsigned>(B) * static_cast<unsigned>(V) *
@@ -236,5 +328,27 @@ extern "C" int projline_sample_backward_launch(const void* coefs,
       static_cast<const float*>(coefs), static_cast<const float*>(g_o),
       static_cast<const float*>(g_dx), static_cast<const float*>(g_dy),
       static_cast<float*>(grad), V, W, AY, AX, C / 2, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6.  coefs is a contiguous [B, V, 16]; the bf16 map [B, AY, AX, C] and
+// the fp32 target rows [B, V, W, C] may be strided views with unit channel
+// stride; pm is a contiguous [B, V, W, 5].
+extern "C" int projline_pixmom_launch(const void* coefs, const void* map,
+                                      const void* tgt, void* pm, int B, int V,
+                                      int W, int AY, int AX, int C,
+                                      long long map_sb, long long map_sy,
+                                      long long map_sx, long long tgt_sb,
+                                      long long tgt_sv, long long tgt_su,
+                                      void* stream) {
+  const int chunks = (W + kPixmomSamples - 1) / kPixmomSamples;
+  const dim3 grid(static_cast<unsigned>(B) * static_cast<unsigned>(V) *
+                  static_cast<unsigned>(chunks));
+  projline_pixmom_kernel<<<grid, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(coefs),
+      static_cast<const __nv_bfloat16*>(map), static_cast<const float*>(tgt),
+      static_cast<float*>(pm), V, W, AY, AX, C, chunks, map_sb, map_sy,
+      map_sx, tgt_sb, tgt_sv, tgt_su);
   return static_cast<int>(cudaGetLastError());
 }

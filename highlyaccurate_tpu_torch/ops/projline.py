@@ -1,6 +1,7 @@
-"""Projective-line sampler of the G2SP direction: K4, its forward, and K5,
-the map gradient (port of ``highlyaccurate_tpu/ops/pallas/banded_warp.py:
-1353-1412, 1744-1818, 1821-1870, 1963-2003, 2006-2114``).
+"""Projective-line sampler of the G2SP direction: K4, its forward, K5, the
+map gradient, and K6, K4 fused with the per-pixel LM moments (port of
+``highlyaccurate_tpu/ops/pallas/banded_warp.py:276, 1353-1412, 1744-1818,
+1821-1870, 1963-2003, 2006-2114, 2117-2138, 2190-2263``).
 
 Along one satellite column the ground-plane points form a 3D line, and the
 perspective image of a line is a line: the homogeneous ground-map
@@ -10,13 +11,18 @@ samples the ground map [B, AY, AX, C] bilinearly at those points and emits
 out, dx, dy (and dxy, the cross derivative the coefficient gradients need)
 as [B, V, W, C]; K5 scatters their gradients back onto the map.
 ``projline_sample`` ties K4 and K5 into one autograd function with the
-coefficient gradients of the JAX custom VJP.
+coefficient gradients of the JAX custom VJP.  K6 (``projline_pixmom``,
+evaluation only) samples as K4 does and contracts each sample's out, dx, dy
+over the channels with the target row into the five moments of
+``lm_update_pixel_moments`` (``PIXMOM_IDX``), so the [B, V, W, C] samples
+never reach device memory.
 
 Each wrapper launches its CUDA kernel (``csrc/projline_sampler.cu``) on CUDA
 tensors, or raises; on CPU tensors it runs the plain PyTorch version beside
 it, which the tests hold to the JAX kernel.
-``projline_sample_forward.launches`` (K4) and
-``projline_sample_backward.launches`` (K5) count kernel launches.
+``projline_sample_forward.launches`` (K4),
+``projline_sample_backward.launches`` (K5) and ``projline_pixmom.launches``
+(K6) count kernel launches.
 """
 
 from __future__ import annotations
@@ -29,6 +35,9 @@ from highlyaccurate_tpu_torch.ops.banded_warp import (_I, _L, _P, _check,
                                                       bilinear_transpose)
 
 NCOEF = 16  # nx0 dnx ny0 dny d0 dd slope oy nck xref yref xlo xhi 0 0 0
+# K6's moment lanes, r = out - target (banded_warp.py:276); the TPU kernel
+# pads them to 16 lanes for its layout, this port emits these five
+PIXMOM_IDX = dict(sxx=0, sxy=1, syy=2, rx=3, ry=4)
 _SHEAR_CHUNK = 8                   # the TPU kernel's row-chunk size
 _FULLMAP_VMEM_BUDGET = 9 * 2 ** 20  # the TPU kernel's bf16 map residency
 
@@ -317,3 +326,75 @@ def projline_sample(grd_map, coefs, *, W: int):
     """
     return ProjlineSample.apply(grd_map.to(torch.float32),
                                 coefs.to(torch.float32), W)
+
+
+def pixel_moments(out, dx, dy, tgt):
+    """The five per-pixel channel moments of the G2SP residual r = out - tgt
+    (``_pixmom_from_accs``, banded_warp.py:2117-2138): out, dx, dy, tgt
+    [..., C] -> (sxx, sxy, syy, rx, ry), each [...] float32, the
+    ``PIXMOM_IDX`` order.  A masked sample has zero dx and dy, so all five
+    are zero."""
+    r = out - tgt.to(torch.float32)
+    return ((dx * dx).sum(-1), (dx * dy).sum(-1), (dy * dy).sum(-1),
+            (dx * r).sum(-1), (dy * r).sum(-1))
+
+
+def projline_pixmom_reference(grd_k, tgt, coefs, W: int):
+    """Plain PyTorch K6: K4's samples of grd_k [B, AY, AX, C] (already in
+    the map dtype) along the lines of coefs [B, V, 16], contracted with the
+    target rows tgt [B, V, W, C] (any strides) -> [B, V, W, 5] float32."""
+    out, dx, dy = projline_sample_reference(grd_k, coefs, W, with_dxy=False)
+    return torch.stack(pixel_moments(out, dx, dy, tgt), dim=-1)
+
+
+def projline_pixmom(grd_map, tgt, coefs, W: int):
+    """K6, the fused per-pixel moments of G2SP evaluation (port of
+    ``make_projline_pixmom``, banded_warp.py:2237-2263): the CUDA kernel for
+    CUDA tensors (or raises), ``projline_pixmom_reference`` for CPU tensors.
+
+    grd_map [B, AY, AX, C] ground map, sampled from a bf16 copy (a no-op
+    for a bf16 map; unit channel stride); tgt [B, V, W, C] float32 target
+    rows in line order, any strides with unit channel stride (the model
+    passes a transposed view of the satellite features); coefs [B, V, 16]
+    from ``pack_projline_coefs``.  Returns [B, V, W, 5] float32 in
+    ``PIXMOM_IDX`` lane order: the TPU kernel's 16-lane padding is a layout
+    of its own, so only the five used lanes are written.  Evaluation only,
+    as in JAX: it has no gradient and raises if autograd would need one.
+    """
+    k = "projline_pixmom"
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (grd_map, tgt, coefs)):
+        raise RuntimeError(f"{k} (K6) is evaluation-only and has no "
+                           "gradient; training samples with projline_sample")
+    grd_k = grd_map.to(torch.bfloat16)
+    B, AY, AX, C = grd_k.shape
+    V = coefs.shape[1]
+    _check_coefs(k, coefs, B, V, W, C)
+    _check(tuple(tgt.shape) == (B, V, W, C), k,
+           f"tgt must be [{B}, {V}, {W}, {C}], got {tuple(tgt.shape)}")
+    if grd_k.device.type == "cpu":
+        return projline_pixmom_reference(grd_k, tgt, coefs, W)
+    dev = grd_k.device
+    _check(dev.type == "cuda", k, f"unsupported device {dev}")
+    _check(coefs.device == dev and tgt.device == dev, k,
+           f"coefs on {coefs.device}, tgt on {tgt.device}, map on {dev}")
+    _check(grd_k.stride(3) == 1 and all(s % 2 == 0 for s in grd_k.stride()[:3])
+           and grd_k.data_ptr() % 4 == 0, k,
+           "map needs unit channel stride and channel-pair alignment")
+    _check(tgt.dtype == torch.float32 and tgt.stride(3) == 1
+           and all(s % 2 == 0 for s in tgt.stride()[:3])
+           and tgt.data_ptr() % 8 == 0, k,
+           "tgt must be float32 with unit channel stride and channel-pair "
+           "alignment")
+    pm = torch.empty(B, V, W, len(PIXMOM_IDX), dtype=torch.float32,
+                     device=dev)
+    fn = _entry("projline_sampler", "projline_pixmom_launch",
+                (_P,) * 4 + (_I,) * 6 + (_L,) * 6 + (_P,))
+    _run(k, fn, dev, coefs.data_ptr(), grd_k.data_ptr(), tgt.data_ptr(),
+         pm.data_ptr(), B, V, W, AY, AX, C, *grd_k.stride()[:3],
+         *tgt.stride()[:3])
+    projline_pixmom.launches += 1
+    return pm
+
+
+projline_pixmom.launches = 0

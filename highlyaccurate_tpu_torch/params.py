@@ -1,14 +1,14 @@
 """Weights for the port (port of ``highlyaccurate_tpu/train/checkpoint.py:
 175-203`` and ``highlyaccurate_tpu/models/vggunet.py:237-285``).
 
-* ``state_dict_from_jax``: the JAX package's LMS2GP or LMG2SP params
-  pytree (numpy or array leaves) -> this port's ``state_dict`` (the
-  reference's key layout; both models have the same keys).
+* ``state_dict_from_jax``: the JAX package's LMS2GP, LMG2SP or LMS2GPFord
+  params pytree (numpy or array leaves) -> this port's ``state_dict`` (the
+  reference's key layout; the three models have the same keys).
 * ``load_pth``: a reference ``.pth`` -> the keys the port's models hold.
 * ``init_params``: fresh weights drawn like the JAX model's own
   initialisation (flax ``Conv`` defaults: LeCun-normal truncated at two
-  standard deviations, zero bias; damping 0 for S2GP, ``cfg.damping`` for
-  G2SP), from a ``torch.Generator``.  The distribution matches; the
+  standard deviations, zero bias; damping 0 for S2GP and Ford,
+  ``cfg.damping`` for G2SP), from a ``torch.Generator``.  The distribution matches; the
   numbers do not.
 """
 
@@ -58,8 +58,9 @@ def _branch(p: dict, prefix: str) -> dict:
 
 
 def state_dict_from_jax(params: dict) -> dict:
-    """JAX LMS2GP / LMG2SP params pytree -> port ``state_dict`` (HWIO -> OIHW;
-    ``dec1/conv_a`` -> ``conv_dec1.1``; ``conf0/conv`` -> ``conf0.1``)."""
+    """JAX LMS2GP / LMG2SP / LMS2GPFord params pytree -> port
+    ``state_dict`` (HWIO -> OIHW; ``dec1/conv_a`` -> ``conv_dec1.1``;
+    ``conf0/conv`` -> ``conf0.1``)."""
     sd = {}
     for br in _BRANCHES:
         sd.update(_branch(params[br], f"{br}."))
@@ -83,7 +84,7 @@ def load_pth(path: str) -> dict:
 def init_params(model: nn.Module, generator: torch.Generator):
     """Re-draw every conv kernel as flax's default initialiser does
     (variance 1/fan_in, truncated normal at +-2 std), zero the biases, and
-    set the damping as the JAX model initialises it (0 for S2GP,
+    set the damping as the JAX model initialises it (0 for S2GP and Ford,
     ``cfg.damping`` for G2SP, lm_g2sp.py:58-60).  Draws on the CPU, then
     copies to the model's device."""
     stddev = 1.0 / 0.87962566103423978  # std of N(0,1) truncated to [-2, 2]

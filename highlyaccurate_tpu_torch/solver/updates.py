@@ -1,7 +1,8 @@
 """LM pose updates (port of ``highlyaccurate_tpu/solver/updates.py:29-43,
-79-92, 156-248, 251-393, 441-479``): the S2GP update from K1's fused
-moments (evaluation) and from K2's line samples (training), and the G2SP
-per-pixel update from K4's samples (both).
+79-92, 156-248, 251-393, 441-516``): the S2GP and Ford update from K1's
+fused moments (evaluation) and from K2's line samples (training), and the
+G2SP per-pixel update from K4's samples (both) or K6's fused moments
+(evaluation).
 
 pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
 solve runs in float32 whatever the feature dtype.  The contractions are
@@ -18,6 +19,7 @@ from typing import NamedTuple
 import torch
 
 from highlyaccurate_tpu_torch.ops.banded_warp import MOM_IDX, moment_sums
+from highlyaccurate_tpu_torch.ops.projline import PIXMOM_IDX, pixel_moments
 
 
 # shifts leaving (-REINIT_RANGE, REINIT_RANGE) are redrawn in [-1, 1)
@@ -201,18 +203,36 @@ def lm_update_implicit_pixel(pose, out, dx, dy, target, duv, damping_param,
     It never re-inits, whatever ``cfg.reinit`` says, as in the JAX package.
     """
     f32 = torch.float32
-    out, dx, dy = out.to(f32), dx.to(f32), dy.to(f32)
-    r = out - target.to(f32)
-    sxx = (dx * dx).sum(-1)                              # [B, H, W]
-    sxy = (dx * dy).sum(-1)
-    syy = (dy * dy).sum(-1)
-    rx = (dx * r).sum(-1)
-    ry = (dy * r).sum(-1)
-    Du = duv[..., 0, :].to(f32)                          # [B, H, W, 3]
-    Dv = duv[..., 1, :].to(f32)
+    moments = pixel_moments(out.to(f32), dx.to(f32), dy.to(f32), target)
+    return _pixel_solve(pose, duv[..., 0, :].to(f32), duv[..., 1, :].to(f32),
+                        moments, damping_param, cfg)
+
+
+def _pixel_solve(pose, Du, Dv, moments, damping_param, cfg: LMConfig):
+    """H and g of the per-pixel update from the five moments [B, H, W] and
+    the duv rows Du, Dv [B, H, W, 3]; the damped solve, never a re-init."""
+    sxx, sxy, syy, rx, ry = moments
     hess = _pixel_hessian(Du, Dv, sxx, sxy, syy)
     g = ((Du * rx[..., None]).sum((1, 2))
          + (Dv * ry[..., None]).sum((1, 2)))
     act = list(cfg.active_dims)
     return _solve_and_reinit(pose, hess[:, act][:, :, act], g[:, act],
                              damping_param, cfg._replace(reinit=False), None)
+
+
+def lm_update_pixel_moments(pose, pm, duv, damping_param, cfg: LMConfig):
+    """The G2SP LM update from K6's fused moments (port of
+    ``highlyaccurate_tpu/solver/updates.py:482-516``): the same H and g as
+    ``lm_update_implicit_pixel``, up to the order of the channel sums, with
+    the five per-pixel moments already contracted by the kernel.
+
+    pm [B, H, W, L] moment lanes in ``PIXMOM_IDX`` order (L = 5 from the
+    port's K6, or the JAX kernel's 16); duv [B, H, W, 2, 3] in the kernel's
+    (x, y) derivative order.  Evaluation only; no re-init.
+    """
+    f32 = torch.float32
+    pm = pm.to(f32)
+    moments = tuple(pm[..., PIXMOM_IDX[k]]
+                    for k in ("sxx", "sxy", "syy", "rx", "ry"))
+    return _pixel_solve(pose, duv[..., 0, :].to(f32), duv[..., 1, :].to(f32),
+                        moments, damping_param, cfg)

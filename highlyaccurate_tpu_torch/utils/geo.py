@@ -1,6 +1,6 @@
 """Geographic / camera constants (port of ``highlyaccurate_tpu/utils/geo.py``).
 
-Only what the S2GP serving path needs: the camera height, the ray epsilon and
+Only what the S2GP and Ford paths need: the camera height, the ray epsilon and
 the web-mercator ground resolution of the satellite patch.  Host numpy.
 """
 

@@ -117,9 +117,10 @@ def test_unsupported_entry_options_raise():
     from highlyaccurate_tpu_torch.inference import Localizer
     with pytest.raises(NotImplementedError, match="save_path"):
         Localizer(Config(**TINY), save_path="ckpt", device="cpu")
-    with pytest.raises(NotImplementedError, match="Ford"):
+    # Ford needs both of its inputs (tests/test_torch_ford.py serves it)
+    with pytest.raises(ValueError, match="Ford serving needs both"):
         Localizer(Config(**TINY), random_init=True, device="cpu",
-                  ford_extrinsics=(np.eye(3), np.zeros(3)), ford_side_m=100.)
+                  ford_side_m=100.)
     loc = Localizer(Config(**TINY), random_init=True, device="cpu")
     sat, grd = _images(0, n=1)
     with pytest.raises(NotImplementedError, match="return_cov"):

@@ -222,15 +222,18 @@ def test_localizer_matches_jax():
                            tloc.predict(sat, grd, camera_k=ks)["lateral_m"])
 
 
-REFUSED = [
-    dict(proj="polar"), dict(Optimizer="SGD"), dict(using_weight=1),
-    dict(banded_bf16_map=0), dict(use_banded_warp=0),
-    dict(g2sp_pixel_moments=1), dict(pose_hypotheses=4),
-    dict(compute_dtype="bfloat16"),
-]
+REFUSED = {
+    "proj": dict(proj="polar"), "Optimizer": dict(Optimizer="SGD"),
+    "using_weight": dict(using_weight=1),
+    "banded_bf16_map": dict(banded_bf16_map=0),
+    "use_banded_warp": dict(use_banded_warp=0),
+    "Optimizer_NN": dict(Optimizer="NN"),
+    "pose_hypotheses": dict(pose_hypotheses=4),
+    "compute_dtype": dict(compute_dtype="bfloat16"),
+}
 
 
-@pytest.mark.parametrize("opt", REFUSED, ids=[next(iter(o)) for o in REFUSED])
+@pytest.mark.parametrize("opt", list(REFUSED.values()), ids=list(REFUSED))
 def test_unsupported_g2sp_options_raise(opt):
     from highlyaccurate_tpu_torch.inference import Localizer
     name = next(iter(opt))
