@@ -12,12 +12,16 @@ Builds the hand-written kernels from the sources in the checkout, then:
    (``projline_sample_forward``), K5 (``projline_sample_backward``) and K6
    (``projline_pixmom``) at each flagship G2SP level, lines from
    ``g2sp_P`` with the default K.
-   Each against its plain PyTorch version on the card; kernel and plain
-   times (CUDA events, warmed up, L2 flushed before every launch, as the
+   Each against its plain PyTorch version on the card (K1 and K3 also
+   launched a second time: ``repeatable`` when the bits agree); kernel and
+   plain times (CUDA events, warmed up, L2 flushed before every launch, as the
    solver finds the map cold) beside the least time the card could take
    (bytes and operations this run's data needs, H100 SXM peaks); and the
    whole VJP of each sampler (K2/K3, K4/K5 and their coefficient
    gradients) against autograd through the plain forward at one shape;
+   kernel_edge_lines: K1, K2 and K3 against their plain versions on
+   hand-made lines (``edge_line_coefs``) at A = 64, each flagship C and W
+   in {24, 130, 512};
 2. main_path: ``Localizer(Config(), random_init=True, batch_size=8)``
    predicts 20 batches of seeded random images in one timed call; K1 must
    launch exactly 15 times per batch and no other kernel; frames/s,
@@ -166,6 +170,16 @@ def gpu_line():
     return out.stdout.strip()
 
 
+def ptxas_lines(log):
+    """Each kernel's registers, shared memory and spills from nvcc's -v
+    output (the log of a build in this run)."""
+    if not log.exists():
+        return None
+    keep = ("Compiling entry", "registers", "spill")
+    return [ln.split(":", 1)[-1].strip() for ln in log.read_text().splitlines()
+            if any(k in ln for k in keep)]
+
+
 def time_cuda(torch, fn, flush, iters=20, warm=3):
     """Median ms of one call, L2 flushed before each call."""
     for _ in range(warm):
@@ -249,6 +263,14 @@ def max_error(got, want, tol):
     return abs_err, rel_err, ok
 
 
+def repeatable(torch, got, launch):
+    """Whether a second launch on the same inputs gives ``got`` bit for
+    bit (synchronises first)."""
+    again = launch()
+    torch.cuda.synchronize()
+    return bool(torch.equal(got, again))
+
+
 def _counters():
     from highlyaccurate_tpu_torch.ops import banded_warp as bw
     from highlyaccurate_tpu_torch.ops import projline as tpl
@@ -314,7 +336,8 @@ def sampler_checks(torch, bw, sat_k, coefs, W, gen, flush, slot):
     cts = torch.randn(3, B, V, W, C, generator=gen, device=sat_k.device)
     got = bw.banded_sample_backward(coefs, *cts, A)
     want = bw.banded_sample_backward_reference(coefs, *cts, A)
-    torch.cuda.synchronize()
+    rep3 = repeatable(torch, got, lambda: bw.banded_sample_backward(
+        coefs, *cts, A))
     abs3, rel3, ok3 = max_error([got], [want], SAMPLER_TOL)
     del got, want
     # the kept samples' three cotangents, coefs, the gradient written
@@ -322,9 +345,9 @@ def sampler_checks(torch, bw, sat_k, coefs, W, gen, flush, slot):
     flops = K3_FLOPS_KEPT * n_keep * C
     k3 = dict(phase="kernel_check", kernel="banded_sample_backward",
               slot=slot, shape=shape, max_abs_err=abs3, max_rel_err=rel3,
-              tol=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6 (fp32 "
-              "atomics: each map cell's sum in a run-dependent order)",
-              within_tol=ok3,
+              tol=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6 (each map "
+              "cell's sum in another order than the plain index_add_)",
+              within_tol=ok3, repeatable=rep3,
               ms=time_cuda(torch, lambda: bw.banded_sample_backward(
                   coefs, *cts, A), flush),
               plain_ms=time_cuda(
@@ -334,9 +357,9 @@ def sampler_checks(torch, bw, sat_k, coefs, W, gen, flush, slot):
               samples_per_cell_max=max_hits, samples_per_cell_mean=mean_hits)
     k3["bound_ms"], k3["bound_by"] = bound(nbytes, flops)
     emit(k3)
-    if not ok3:
-        fail(f"K3 disagrees with its plain version at slot {slot}: "
-             f"max abs {abs3}, max rel {rel3}")
+    if not (ok3 and rep3):
+        fail(f"K3 at slot {slot}: max abs {abs3}, max rel {rel3} against its "
+             f"plain version, repeatable {rep3}")
     return k2, k3
 
 
@@ -414,7 +437,7 @@ def phase_kernels(torch, dev, flush):
         got = wrapper()
         want = bw.banded_moments_reference(sat_k, grd, mask, uv0, uv1, RB=RB,
                                            bf16_map=True)
-        torch.cuda.synchronize()
+        rep1 = repeatable(torch, got, kernel)
         abs_err, rel_err, ok = moment_error(got, want)
         bound_ms, bound_by, nbytes, flops = k1_bound(torch, bw, sat_k, grd,
                                                      mask, coefs, True)
@@ -422,7 +445,7 @@ def phase_kernels(torch, dev, flush):
                    shape=dict(B=BATCH, A=A, C=C, V=V, W=W, RB=RB),
                    max_abs_err=abs_err, max_rel_err=rel_err,
                    tol=f"|err| <= {KERNEL_TOL} * column max + 1e-6",
-                   within_tol=ok,
+                   within_tol=ok, repeatable=rep1,
                    ms=time_cuda(torch, kernel, flush),
                    plain_ms=time_cuda(torch, plain, flush, iters=5),
                    wrapper_ms=time_cuda(torch, wrapper, flush),
@@ -430,9 +453,9 @@ def phase_kernels(torch, dev, flush):
                    flops=flops, rows_zeroed_by_guard=int(
                        (coefs[..., 0] == 1e9).sum()))
         emit(row)
-        if not ok:
-            fail(f"K1 disagrees with its plain version at slot {slot}: "
-                 f"max abs {abs_err}, max rel {rel_err}")
+        if not (ok and rep1):
+            fail(f"K1 at slot {slot}: max abs {abs_err}, max rel {rel_err} "
+                 f"against its plain version, repeatable {rep1}")
         rows["banded_moments"].append(row)
 
         # K2 and K3 on the same lines, an O(1) bf16 map as training gives it
@@ -447,6 +470,99 @@ def phase_kernels(torch, dev, flush):
                       grads=sampler_vjp_check(torch, bw, sat_s, uv0, uv1, W,
                                               RB, gen_s)))
     return rows
+
+
+def edge_line_coefs(torch, A, dev):
+    """Hand-made rows [2, 11, 8] of the banded kernels' contract, x = ax +
+    bx*u, y = ay + by*u, each a case their tile or split logic must get
+    right: bx = by = 0 (every sample on one cell); |bx| = 0.05 and 1e-7;
+    negative bx and by; a start on integer coordinates that are tile
+    borders; lines along x = A-2 and y = A-2 (the edge quirk keeps them,
+    their corners on the last column or row); a guard-zeroed row (ax =
+    1e9); a steep line with negative bx; a line entering the map late.
+    The second image shifts every unguarded row by 1/8 cell."""
+    rows = [(A / 2 + 0.3, 0.0, A / 3 + 0.6, 0.0),
+            (1.5, 0.05, 9.25, 0.02),
+            (0.5, 1e-7, 17.5, 0.03),
+            (A - 2.5, -0.7, A - 3.2, -0.3),
+            (8.0, 0.5, 16.0, 0.25),
+            (A - 2.0, 0.0, 1.0, 0.4),
+            (0.5, 0.45, A - 2.0, 0.0),
+            (1e9, 0.5, 3.0, 0.2),
+            (A - 1.5, -0.9, 2.0, 0.6),
+            (24.0, -1e-7, 40.0, -0.05),
+            (-3.0, 0.25, 8.0, 0.125)]
+    coefs = torch.zeros(2, len(rows), 8, dtype=torch.float32)
+    coefs[:, :, :4] = torch.tensor(rows, dtype=torch.float32)
+    live = coefs[1, :, 0] < 1e8
+    coefs[1, live, 0] += 0.125
+    return coefs.to(dev)
+
+
+def phase_kernel_edge_lines(torch, dev):
+    """K1, K2 and K3 against their plain versions on ``edge_line_coefs`` at
+    A = 64, each flagship C and W in {24, 130, 512} (W = 24 is shorter than
+    one K1 block's share of samples, 130 no multiple of its split): K1 and
+    K2 on a transposed bf16 and fp32 map, K1 under a ray mask with zeros and
+    one row masked whole; K1 and K3 launched twice, bit for bit."""
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+    A = 64
+    gen = torch.Generator(device=dev).manual_seed(4)
+    coefs = edge_line_coefs(torch, A, dev)
+    B, V = coefs.shape[:2]
+    cases, bad = [], []
+    for C in (256, 128, 64):
+        for W in (24, 130, 512):
+            sat = torch.randn(B, A, A, C, generator=gen, device=dev)
+            grd = torch.randn(B, V, W, C, generator=gen, device=dev)
+            mask = (torch.rand(V, W, generator=gen, device=dev) > 0.2).float()
+            mask[4] = 0.0
+            cts = torch.randn(3, B, V, W, C, generator=gen, device=dev)
+            _, n_keep, max_hits, _ = cell_stats(
+                torch, bw._line_cells(coefs, W, A), A, A)
+            case = dict(C=C, W=W, kept_samples=n_keep,
+                        samples_per_cell_max=max_hits)
+            for name, dtype in (("bf16", torch.bfloat16),
+                                ("fp32", torch.float32)):
+                sat_k = sat.to(dtype).transpose(1, 2)
+                bf16 = dtype == torch.bfloat16
+
+                def k1():
+                    return bw.moments_from_coefs(sat_k, grd, mask, coefs,
+                                                 bf16_map=bf16)
+
+                got = k1()
+                rep1 = repeatable(torch, got, k1)
+                _, rel1, ok1 = moment_error(
+                    got, bw.moments_from_coefs_reference(sat_k, grd, mask,
+                                                         coefs))
+                got = bw.banded_sample_forward(sat_k, coefs, W, with_dxy=True)
+                want = bw.banded_sample_reference(sat_k, coefs, W, True)
+                torch.cuda.synchronize()
+                _, rel2, ok2 = max_error(got, want, SAMPLER_TOL)
+                case[f"k1_{name}"] = dict(max_rel_err=rel1, within_tol=ok1,
+                                          repeatable=rep1)
+                case[f"k2_{name}"] = dict(max_rel_err=rel2, within_tol=ok2)
+                bad += [f"{k} {name} C={C} W={W}" for k, good in
+                        (("K1", ok1 and rep1), ("K2", ok2)) if not good]
+            got = bw.banded_sample_backward(coefs, *cts, A)
+            rep3 = repeatable(torch, got, lambda: bw.banded_sample_backward(
+                coefs, *cts, A))
+            _, rel3, ok3 = max_error(
+                [got], [bw.banded_sample_backward_reference(coefs, *cts, A)],
+                SAMPLER_TOL)
+            case["k3"] = dict(max_rel_err=rel3, within_tol=ok3,
+                              repeatable=rep3)
+            if not (ok3 and rep3):
+                bad.append(f"K3 C={C} W={W}")
+            cases.append(case)
+    emit(dict(phase="kernel_edge_lines", A=A, B=B, rows=V,
+              tol=dict(k1=f"|err| <= {KERNEL_TOL} * column max + 1e-6",
+                       k2_k3=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6"),
+              cases=cases))
+    if bad:
+        fail("kernel_edge_lines: disagrees with the plain version or is not "
+             "repeatable: " + ", ".join(bad))
 
 
 def g2sp_lines(torch, cfg, slot, pose, camera_k):
@@ -1469,10 +1585,12 @@ def main():
     t0 = time.perf_counter()
     libs = _build.build()
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
-              libraries={k: os.path.relpath(v) for k, v in libs.items()}))
+              libraries={k: os.path.relpath(v) for k, v in libs.items()},
+              ptxas={k: ptxas_lines(_build.build_log(k)) for k in libs}))
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     shapes = phase_kernels(torch, dev, flush)
+    phase_kernel_edge_lines(torch, dev)
     shapes.update(phase_g2sp_kernels(torch, dev, flush))
     del flush
     k1, k2, k3 = (("banded_moments_kernel", 15), "banded_sample_kernel",

@@ -22,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 KERNELS = ("banded_moments", "banded_sampler", "projline_sampler")
 
 
@@ -42,12 +42,19 @@ def library_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
+def build_log(name: str) -> Path:
+    """nvcc's output of the build of kernel ``name``'s library."""
+    return library_path(name).with_suffix(".log")
+
+
 def build(names=KERNELS) -> dict:
     """Compile every named kernel whose library is missing, in parallel.
 
-    Returns {name: library path}.  Raises with nvcc's output on failure.
-    Each library is written to a temporary name and renamed into place, so
-    concurrent builders never load a half-written file.
+    Returns {name: library path}.  Raises with nvcc's output on failure;
+    on success the output (ptxas registers, shared memory and spills of
+    every kernel) goes to ``build_log(name)``.  Each library is written to
+    a temporary name and renamed into place, so concurrent builds never
+    load a half-written file.
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: library_path(n) for n in names}
@@ -68,6 +75,7 @@ def build(names=KERNELS) -> dict:
                 failed.append(f"{n}: nvcc exited {proc.returncode}\n"
                               f"{out.decode(errors='replace')}")
                 continue
+            build_log(n).write_bytes(out)
             os.replace(tmp, paths[n])
         if failed:
             raise RuntimeError("kernel build failed:\n" + "\n".join(failed))

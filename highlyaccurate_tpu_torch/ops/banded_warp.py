@@ -10,9 +10,10 @@ contracts them with the target row into the 9 channel moments the LM update
 needs (``MOM_IDX``), each summed over u with weights 1, u, u^2: out
 [B, V, 3, 16].  The [B, V, W, C] samples never reach device memory.  K2
 emits those samples, out, dx, dy (and dxy, the cross derivative the
-coefficient gradients need) as [B, V, W, C]; K3 scatters their gradients
-back onto the map.  ``banded_sample`` ties K2 and K3 into one autograd
-function with the coefficient gradients of the JAX custom VJP.
+coefficient gradients need) as [B, V, W, C]; K3 gathers their gradients
+back onto the map, each map tile from the samples that touch it.
+``banded_sample`` ties K2 and K3 into one autograd function with the
+coefficient gradients of the JAX custom VJP.
 
 Each kernel's wrapper launches its CUDA kernel (``csrc/banded_moments.cu``,
 ``csrc/banded_sampler.cu``) on CUDA tensors, or raises; on CPU tensors it
@@ -339,7 +340,12 @@ def banded_moments(sat_k, grd, mask, uv0, uv1, *, RB: int, bf16_map: bool):
     float32 (rows: sum, u-sum, u^2-sum; lanes: ``MOM_IDX``, rest zero).
 
     CPU tensors take the plain PyTorch version; CUDA tensors launch the
-    CUDA kernel, or raise.
+    CUDA kernel, or raise.  Its work is bytes (the live target rows and
+    the map corners the kept samples touch): the blocks of a row
+    split its samples and form a thread-block cluster, lanes in groups of
+    8-32 per sample keep 20 loads in flight each, masked samples are
+    skipped, and the partial sums meet in a fixed order through distributed
+    shared memory, so one launch per call gives the same bits every time.
     """
     coefs = pack_row_coefs(uv0, uv1, sat_k.shape[1], RB, mask.shape[1])
     return moments_from_coefs(sat_k.to(_map_dtype(bf16_map)), grd, mask,
@@ -382,9 +388,16 @@ def banded_sample_forward(sat_k, coefs, W: int, *, with_dxy: bool):
 def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int):
     """K3: the map gradient [B, A, A, C] float32 (kernel axes) of K2's
     (out, dx, dy) under the cotangents g_o, g_dx, g_dy [B, V, W, C] float32.
-    The CUDA kernel for CUDA tensors (or raises; its fp32 atomics sum each
-    map cell in a run-dependent order), ``banded_sample_backward_reference``
-    for CPU tensors."""
+    The CUDA kernel for CUDA tensors (or raises), the plain
+    ``banded_sample_backward_reference`` for CPU tensors.
+
+    Its work is bytes: the kept samples' cotangents read and the whole
+    gradient written.  One block owns a tile of 8 x 4 map cells x 64
+    channels of one image, gathers the samples with a corner in it (K2's
+    own cell rounding decides), sums each (cell, channel) in one thread in
+    (v, u) order, and writes the tile once, zeros included: no atomics, no
+    zero fill, and two launches on the same inputs give the same bits.
+    """
     if g_o.device.type == "cpu":
         return banded_sample_backward_reference(coefs, g_o, g_dx, g_dy, A)
     k = "banded_sample_backward"
@@ -399,7 +412,8 @@ def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int):
                and t.data_ptr() % 8 == 0, k,
                f"{name} must be contiguous 8-byte aligned float32 "
                f"{tuple(g_o.shape)} on {dev}")
-    grad = torch.zeros(B, A, A, C, dtype=torch.float32, device=dev)
+    _check(B < 65536, k, f"batch {B} exceeds the launch grid")
+    grad = torch.empty(B, A, A, C, dtype=torch.float32, device=dev)
     fn = _entry("banded_sampler", "banded_sample_backward_launch",
                 (_P,) * 5 + (_I,) * 5 + (_P,))
     _run(k, fn, dev, coefs.data_ptr(), g_o.data_ptr(), g_dx.data_ptr(),

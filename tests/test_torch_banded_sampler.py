@@ -14,7 +14,13 @@
 * The coefficient gradients of the autograd function against autograd
   through the plain forward (1e-5), the map gradient identical with a bf16
   and an fp32 map (K3 never reads the map), and a strided map view.
-* The CUDA kernels against the plain versions, on the card only.
+* The plain K2 and the plain VJP against the JAX sampler on crowded
+  lines (``_crowded_inputs``): every sample of a row on one cell, nearly
+  flat and reversed lines, tile-border starts and lines along the last
+  kept column and row.  K2 at atol 1e-5, the VJP at the JAX package's
+  rtol 1e-4 / atol 1e-4 (up to W samples meet on one map cell).
+* The CUDA kernels against the plain versions, on the card only, on both
+  sets of lines, and K3 launched twice on the same inputs: equal bits.
 
 The JAX package is imported inside the tests that use it, so the card test
 runs where JAX is absent:
@@ -59,6 +65,38 @@ def _inputs(seed):
     uv1 = np.stack([ax + bx, ay + by], -1).astype(np.float32)
     cts = rng.randn(3, B, V, W, C).astype(np.float32)  # cotangents
     return sat, uv0, uv1, cts
+
+
+VC = 8  # rows of the crowded lines
+
+
+def _crowded_lines():
+    """Row endpoints (kernel x, y at u = 0, 1) that crowd samples onto few
+    map cells and sit where the CUDA kernels split their work: bx = by = 0
+    (all W samples on one cell), |bx| = 0.05 and ~1.2e-7, negative bx and
+    by, a start on integer coordinates (an 8-cell tile border), a point on
+    x = A-2 and a line along y = A-2 (the edge quirk keeps both), and a row
+    the guard zeroes (|slope| = 0.98).  The second image is the first
+    shifted by 1/8 cell in x."""
+    rows = np.array([(A / 2 + 0.3, 0.0, A / 3 + 0.6, 0.0),
+                     (1.5, 0.05, 9.25, 0.02),
+                     (0.5, 1.2e-7, 17.5, 0.0),
+                     (A - 2.5, -0.7, A - 3.2, -0.3),
+                     (8.0, 0.5, 16.0, 0.25),
+                     (A - 2.0, 0.0, 5.5, 0.0),
+                     (0.5, 0.45, A - 2.0, 0.0),
+                     (3.0, 0.5, 2.0, 0.49)])
+    rows = np.stack([rows, rows + [0.125, 0.0, 0.0, 0.0]])   # [B, VC, 4]
+    uv0 = rows[..., [0, 2]].astype(np.float32)
+    uv1 = (rows[..., [0, 2]] + rows[..., [1, 3]]).astype(np.float32)
+    return uv0, uv1
+
+
+def _crowded_inputs(seed):
+    rng = np.random.RandomState(seed)
+    sat = rng.rand(B, A, A, C).astype(np.float32)
+    cts = rng.randn(3, B, VC, W, C).astype(np.float32)
+    return (sat, *_crowded_lines(), cts)
 
 
 def _port_grads(sat, uv0, uv1, cts, bf16_map):
@@ -114,6 +152,42 @@ def test_vjp_matches_jax_grad(bf16_map):
     assert np.all(got[1][:, 3] == 0) and np.all(got[2][:, 3] == 0)
 
 
+@pytest.mark.parametrize("bf16_map", [False, True])
+def test_reference_matches_jax_sampler_crowded_lines(bf16_map):
+    jax, jnp, jbw = _jax()
+    sat, uv0, uv1, _ = _crowded_inputs(1)
+    sampler = jbw.make_banded_sampler(A=A, C=C, V=VC, W=W, RB=RB,
+                                      interpret=True, bf16_map=bf16_map)
+    want = sampler(jnp.asarray(sat), jnp.asarray(uv0), jnp.asarray(uv1))
+    got = tbw.banded_sample(torch.from_numpy(sat), torch.from_numpy(uv0),
+                            torch.from_numpy(uv1), W=W, RB=RB,
+                            bf16_map=bf16_map)
+    for name, g, w in zip(("out", "dx", "dy"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5,
+                                   rtol=0, err_msg=name)
+    # the one-cell row keeps all W samples, the guarded row none
+    assert np.all(got[0][:, 0].numpy() != 0)
+    assert all(np.all(g[:, 7].numpy() == 0) for g in got)
+
+
+@pytest.mark.parametrize("bf16_map", [False, True])
+def test_vjp_matches_jax_grad_crowded_lines(bf16_map):
+    jax, jnp, jbw = _jax()
+    sat, uv0, uv1, cts = _crowded_inputs(2)
+    sampler = jbw.make_banded_sampler(A=A, C=C, V=VC, W=W, RB=RB,
+                                      interpret=True, bf16_map=bf16_map)
+
+    def loss(s, a, b):
+        return sum(jnp.sum(o * c) for o, c in zip(sampler(s, a, b), cts))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(sat), jnp.asarray(uv0), jnp.asarray(uv1))
+    _, got = _port_grads(sat, uv0, uv1, cts, bf16_map)
+    for name, g, w in zip(("sat", "uv0", "uv1"), got, want):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-4, atol=1e-4,
+                                   err_msg=name)
+
+
 def test_vjp_matches_autograd_through_plain_forward():
     """The hand-written VJP (K3's plain version and the coefficient
     gradients) against autograd through ``banded_sample_reference``."""
@@ -167,26 +241,36 @@ def test_strided_map_view_and_saved_outputs():
 @pytest.mark.cuda
 def test_cuda_kernels_match_reference():
     """K2 (all four outputs) and K3 against their plain versions on the
-    card, strided bf16 and fp32 maps.  K3 sums with atomics in a
-    run-dependent order: atol 1e-5 on O(1) sums of at most ~W terms."""
+    card, strided bf16 and fp32 maps, on the lines of ``_inputs`` and on the
+    crowded lines (with one row made a true line along x = A-2, which the
+    guard would zero).  K3 sums each map cell in another order than the
+    plain index_add_: atol 1e-5 on O(1) sums of at most ~W terms; two K3
+    launches on the same inputs give the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     sat, uv0, uv1, cts = (torch.from_numpy(a).cuda() for a in _inputs(11))
-    coefs = tbw.pack_row_coefs(uv0, uv1, A, RB, W)
-    for dtype in (torch.float32, torch.bfloat16):
-        sat_k = sat.to(dtype).transpose(1, 2)
-        before = tbw.banded_sample.launches
-        got = tbw.banded_sample_forward(sat_k, coefs, W, with_dxy=True)
+    crowded = [torch.from_numpy(a).cuda() for a in _crowded_inputs(12)]
+    cases = [(tbw.pack_row_coefs(uv0, uv1, A, RB, W), cts)]
+    coefs = tbw.pack_row_coefs(*crowded[1:3], A, RB, W)
+    coefs[:, 5, :4] = torch.tensor([A - 2.0, 0.0, 1.0, 0.4])
+    cases.append((coefs, crowded[3]))
+    for coefs, cts in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            sat_k = sat.to(dtype).transpose(1, 2)
+            before = tbw.banded_sample.launches
+            got = tbw.banded_sample_forward(sat_k, coefs, W, with_dxy=True)
+            torch.cuda.synchronize()
+            assert tbw.banded_sample.launches == before + 1
+            want = tbw.banded_sample_reference(sat_k, coefs, W, with_dxy=True)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                           rtol=1e-5, atol=1e-6)
+        before = tbw.banded_sample_backward.launches
+        got = tbw.banded_sample_backward(coefs, *cts, A)
         torch.cuda.synchronize()
-        assert tbw.banded_sample.launches == before + 1
-        want = tbw.banded_sample_reference(sat_k, coefs, W, with_dxy=True)
-        for g, w in zip(got, want):
-            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
-                                       rtol=1e-5, atol=1e-6)
-    before = tbw.banded_sample_backward.launches
-    got = tbw.banded_sample_backward(coefs, *cts, A)
-    torch.cuda.synchronize()
-    assert tbw.banded_sample_backward.launches == before + 1
-    want = tbw.banded_sample_backward_reference(coefs, *cts, A)
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=0, atol=1e-5)
+        assert tbw.banded_sample_backward.launches == before + 1
+        want = tbw.banded_sample_backward_reference(coefs, *cts, A)
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=1e-5)
+        again = tbw.banded_sample_backward(coefs, *cts, A)
+        assert torch.equal(got, again)
