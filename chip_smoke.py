@@ -12,8 +12,9 @@ Builds the hand-written kernels from the sources in the checkout, then:
    (``projline_sample_forward``), K5 (``projline_sample_backward``) and K6
    (``projline_pixmom``) at each flagship G2SP level, lines from
    ``g2sp_P`` with the default K.
-   Each against its plain PyTorch version on the card (K1 and K3 also
-   launched a second time: ``repeatable`` when the bits agree); kernel and
+   Each against its plain PyTorch version on the card (K1, K3, K5 and K6
+   also launched a second time: ``repeatable`` when the bits agree; K5's
+   row also says how its samples spread over its tiles); kernel and
    plain times (CUDA events, warmed up, L2 flushed before every launch, as the
    solver finds the map cold) beside the least time the card could take
    (bytes and operations this run's data needs, H100 SXM peaks); and the
@@ -21,7 +22,9 @@ Builds the hand-written kernels from the sources in the checkout, then:
    gradients) against autograd through the plain forward at one shape;
    kernel_edge_lines: K1, K2 and K3 against their plain versions on
    hand-made lines (``edge_line_coefs``) at A = 64, each flagship C and W
-   in {24, 130, 512};
+   in {24, 130, 512}; kernel_edge_projlines: K4, K5 and K6 on hand-made
+   projective lines (``EDGE_PROJLINES``) on a 32 x 128 map, each flagship
+   C and W in {24, 130, 256}, K5 and K6 twice, bit for bit;
 2. main_path: ``Localizer(Config(), random_init=True, batch_size=8)``
    predicts 20 batches of seeded random images in one timed call; K1 must
    launch exactly 15 times per batch and no other kernel; frames/s,
@@ -66,6 +69,10 @@ Builds the hand-written kernels from the sources in the checkout, then:
    with exactly 15 K2 and 15 K3 launches per step, each against a CPU run
    of the port at batch 2 (tables in chiprun_out/profile_ford_eval_b8.txt
    and profile_ford_train_b8.txt).
+
+``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
+second checkout in DIR (the parent commit) and of this one in turns
+(``ab_g2sp_kernels``).
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -223,6 +230,29 @@ def cell_stats(torch, cells, AY, AX):
     held = hits[hits > 0]
     return (int(touched.sum()), int(keep.sum()), int(hits.max()),
             float(held.float().mean()) if held.numel() else 0.0)
+
+
+def tile_stats(torch, cells, AY, AX):
+    """Of the bilinear cells (x0, y0, fx, fy, m) of the projective lines'
+    samples, over K5's tiles of 8 map columns x 4 map rows of each image:
+    (tiles, tiles that some kept sample's corners touch, the most kept
+    samples touching one tile).  The last is the longest list one K5
+    block walks."""
+    x0, y0, _, _, m = cells
+    keep = m > 0
+    B = x0.shape[0]
+    nt, nty = -(-AX // 8), -(-AY // 4)
+    b = torch.arange(B, device=x0.device)[:, None, None].expand_as(x0)[keep]
+    xi, yi = x0[keep], y0[keep]
+    n = xi.numel()
+    if n == 0:
+        return B * nt * nty, 0, 0
+    keys = torch.stack([(b * nty + (yi + dy) // 4) * nt + (xi + dx) // 8
+                        for dy in (0, 1) for dx in (0, 1)])
+    sid = torch.arange(n, device=x0.device)
+    tiles = torch.unique(keys * n + sid) // n  # each sample once per tile
+    hits = torch.bincount(tiles, minlength=B * nt * nty)
+    return B * nt * nty, int((hits > 0).sum()), int(hits.max())
 
 
 def bound(nbytes, flops):
@@ -593,8 +623,10 @@ def projline_checks(torch, tpl, grd_k, coefs, W, gen, flush, slot):
     with dxy.  Returns the two kernel_check rows."""
     B, AY, AX, C = grd_k.shape
     V = coefs.shape[1]
-    touched, n_keep, max_hits, mean_hits = cell_stats(
-        torch, tpl._projline_cells(coefs, W, AY, AX), AY, AX)
+    cells = tpl._projline_cells(coefs, W, AY, AX)
+    touched, n_keep, max_hits, mean_hits = cell_stats(torch, cells, AY, AX)
+    tiles, tiles_touched, tile_max = tile_stats(torch, cells, AY, AX)
+    del cells
     shape = dict(B=B, AY=AY, AX=AX, C=C, V=V, W=W)
     out_bytes = B * V * W * C * 4
 
@@ -631,7 +663,8 @@ def projline_checks(torch, tpl, grd_k, coefs, W, gen, flush, slot):
     cts = torch.randn(3, B, V, W, C, generator=gen, device=grd_k.device)
     got = tpl.projline_sample_backward(coefs, *cts, AY, AX)
     want = tpl.projline_sample_backward_reference(coefs, *cts, AY, AX)
-    torch.cuda.synchronize()
+    rep5 = repeatable(torch, got, lambda: tpl.projline_sample_backward(
+        coefs, *cts, AY, AX))
     abs5, rel5, ok5 = max_error([got], [want], SAMPLER_TOL)
     del got, want
     # the kept samples' three cotangents, coefs, the gradient written
@@ -639,21 +672,23 @@ def projline_checks(torch, tpl, grd_k, coefs, W, gen, flush, slot):
     flops = K3_FLOPS_KEPT * n_keep * C
     k5 = dict(phase="kernel_check", kernel="projline_sample_backward",
               slot=slot, shape=shape, max_abs_err=abs5, max_rel_err=rel5,
-              tol=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6 (fp32 "
-              "atomics: each map cell's sum in a run-dependent order)",
-              within_tol=ok5,
+              tol=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6 (each map "
+              "cell's sum in another order than the plain index_add_)",
+              within_tol=ok5, repeatable=rep5,
               ms=time_cuda(torch, lambda: tpl.projline_sample_backward(
                   coefs, *cts, AY, AX), flush),
               plain_ms=time_cuda(
                   torch, lambda: tpl.projline_sample_backward_reference(
                       coefs, *cts, AY, AX), flush, iters=5),
               bytes=nbytes, flops=flops, kept_samples=n_keep,
-              samples_per_cell_max=max_hits, samples_per_cell_mean=mean_hits)
+              samples_per_cell_max=max_hits, samples_per_cell_mean=mean_hits,
+              tiles=tiles, tiles_touched=tiles_touched,
+              samples_per_tile_max=tile_max)
     k5["bound_ms"], k5["bound_by"] = bound(nbytes, flops)
     emit(k5)
-    if not ok5:
-        fail(f"K5 disagrees with its plain version at slot {slot}: "
-             f"max abs {abs5}, max rel {rel5}")
+    if not (ok5 and rep5):
+        fail(f"K5 at slot {slot}: max abs {abs5}, max rel {rel5} against its "
+             f"plain version, repeatable {rep5}")
     return k4, k5
 
 
@@ -679,7 +714,8 @@ def pixmom_check(torch, tpl, grd_k, tgt, coefs, W, flush, slot):
     want = tpl.projline_pixmom_reference(grd_k, tgt, coefs, W)
     via_k4 = torch.stack(tpl.pixel_moments(*tpl.projline_sample_forward(
         grd_k, coefs, W, with_dxy=False), tgt), -1)
-    torch.cuda.synchronize()
+    rep6 = repeatable(torch, got, lambda: tpl.projline_pixmom(
+        grd_k, tgt, coefs, W))
     abs6, rel6, ok6 = lane_error(got, want)
     abs_k4, rel_k4, ok_k4 = lane_error(got, via_k4)
     del got, want, via_k4
@@ -692,7 +728,8 @@ def pixmom_check(torch, tpl, grd_k, tgt, coefs, W, flush, slot):
                shape=dict(B=B, AY=AY, AX=AX, C=C, V=V, W=W),
                max_abs_err=abs6, max_rel_err=rel6,
                tol=f"|err| <= {SAMPLER_TOL} * max|plain lane| + 1e-6 per lane",
-               within_tol=ok6, k4_contracted_max_abs_err=abs_k4,
+               within_tol=ok6, repeatable=rep6,
+               k4_contracted_max_abs_err=abs_k4,
                k4_contracted_max_rel_err=rel_k4, k4_contracted_within_tol=ok_k4,
                ms=time_cuda(torch, lambda: tpl.projline_pixmom(
                    grd_k, tgt, coefs, W), flush),
@@ -702,10 +739,10 @@ def pixmom_check(torch, tpl, grd_k, tgt, coefs, W, flush, slot):
                samples=B * V * W)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
     emit(row)
-    if not (ok6 and ok_k4):
-        fail(f"K6 disagrees at slot {slot}: with its plain version max abs "
-             f"{abs6} (rel {rel6}), with K4 contracted max abs {abs_k4} "
-             f"(rel {rel_k4})")
+    if not (ok6 and ok_k4 and rep6):
+        fail(f"K6 at slot {slot}: with its plain version max abs {abs6} "
+             f"(rel {rel6}), with K4 contracted max abs {abs_k4} (rel "
+             f"{rel_k4}), repeatable {rep6}")
     return row
 
 
@@ -773,6 +810,125 @@ def phase_g2sp_kernels(torch, dev, flush):
                       grads=projline_vjp_check(torch, tpl, grd, h0, dh, A,
                                                gen)))
     return rows
+
+
+# Hand-made projective lines (nx0, dnx, ny0, dny, d0, dd) on a 32 x 128
+# ground map, x = (nx0 + dnx*u) / den, y = (ny0 + dny*u) / den, den = d0 +
+# dd*u; where a coordinate is meant to land on integers it is exact in fp32
+EDGE_PROJLINES = (
+    (-55.0, 6.0, -19.0, 2.0, -1.0, 0.1),   # pole at u = 10: behind the camera
+                                           # before (x, y in the map there),
+                                           # then in front, toward (60, 20)
+    (36.0, 0.5, 12.0, 0.3, 1.2, -0.1),     # in front until its pole at u = 12
+    (7.0, 1.75, 5.0, 0.375, 2.0, 0.0),     # dd = 0: x = 3.5 + 0.875u, exact
+    (100.0, 0.0, 5.0, 0.15, 1.0, 0.02),    # dnx = 0
+    (15.0, 0.7, 24.0, 0.0, 1.5, 0.01),     # dny = 0
+    (5.0, 20.15, 12.5, 1.85, 0.5, 0.5),    # converges on cell (40, 3):
+                                           # dozens of samples per cell
+    (16.0, 1.0, 8.0, 0.5, 1.0, 0.0),       # starts on a tile corner, crosses
+                                           # tile borders on integers
+    (126.0, 0.0, 0.5, 0.25, 1.0, 0.0),     # along x = AX-2 (edge quirk keeps)
+    (0.25, 0.625, 30.0, 0.0, 1.0, 0.0),    # along y = AY-2
+    (1e9, 0.0, 3.0, 0.2, 1.0, 0.0),        # a guard line
+    (64.5, -0.3, 3.0, 0.1, 1.0, 1e-7),     # |dd| = 1e-7
+    (20.0, 0.45, 28.0, -0.1, 1.0, -1e-7),
+    (120.0, -0.8, 30.0, -0.15, 1.0, 0.003),  # x and y decreasing
+    (-30.0, 0.6, 2.0, 0.12, 1.0, 0.0),     # enters the map late
+)
+EDGE_AY, EDGE_AX = 32, 128
+
+
+def edge_projlines():
+    """The lines of ``EDGE_PROJLINES`` as (h0, dh) [2, V, 3] float32 numpy
+    (h = h0 + u*dh = (nx0 + dnx*u, ny0 + dny*u, d0 + dd*u)); the second
+    image shifts every line but the guard line by 1/8 cell at u = 0."""
+    lines = np.asarray(EDGE_PROJLINES, np.float64)
+    h0 = np.repeat(lines[None, :, 0::2], 2, axis=0)
+    dh = np.repeat(lines[None, :, 1::2], 2, axis=0)
+    live = lines[:, 0] < 1e8
+    h0[1, live, 0] += 0.125 * lines[live, 4]
+    return h0.astype(np.float32), dh.astype(np.float32)
+
+
+def edge_projline_coefs(torch, dev):
+    """``edge_projlines`` written straight into lanes 0-5 of [2, V, 16]
+    coefficients (the kernels read no others)."""
+    h0, dh = edge_projlines()
+    coefs = np.zeros(h0.shape[:2] + (16,), np.float32)
+    coefs[..., 0:6:2], coefs[..., 1:6:2] = h0, dh
+    return torch.from_numpy(coefs).to(dev)
+
+
+def phase_kernel_edge_projlines(torch, dev):
+    """K4, K5 and K6 against their plain versions on ``edge_projlines`` at
+    AY x AX = 32 x 128, C in {256, 128, 64} and W in {24, 130, 256}: K4 on
+    a bf16 and an fp32 map, with dxy; K6 on a transposed target view, also
+    against K4 contracted in torch; K5 and K6 launched twice, bit for
+    bit."""
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+    AY, AX = EDGE_AY, EDGE_AX
+    gen = torch.Generator(device=dev).manual_seed(5)
+    coefs = edge_projline_coefs(torch, dev)
+    B, V = coefs.shape[:2]
+    cases, bad = [], []
+    for C in (256, 128, 64):
+        for W in (24, 130, 256):
+            grd = torch.randn(B, AY, AX, C, generator=gen, device=dev)
+            sat = torch.randn(B, W, V + 3, C, generator=gen, device=dev)
+            tgt = sat[:, :, 3:].transpose(1, 2)
+            cts = torch.randn(3, B, V, W, C, generator=gen, device=dev)
+            cells = tpl._projline_cells(coefs, W, AY, AX)
+            _, n_keep, max_hits, _ = cell_stats(torch, cells, AY, AX)
+            _, tiles_touched, tile_max = tile_stats(torch, cells, AY, AX)
+            case = dict(C=C, W=W, kept_samples=n_keep,
+                        samples_per_cell_max=max_hits,
+                        tiles_touched=tiles_touched,
+                        samples_per_tile_max=tile_max)
+            for name, dtype in (("bf16", torch.bfloat16),
+                                ("fp32", torch.float32)):
+                grd_k = grd.to(dtype)
+                got = tpl.projline_sample_forward(grd_k, coefs, W,
+                                                  with_dxy=True)
+                want = tpl.projline_sample_reference(grd_k, coefs, W, True)
+                torch.cuda.synchronize()
+                _, rel4, ok4 = max_error(got, want, SAMPLER_TOL)
+                case[f"k4_{name}"] = dict(max_rel_err=rel4, within_tol=ok4)
+                if not ok4:
+                    bad.append(f"K4 {name} C={C} W={W}")
+            got = tpl.projline_sample_backward(coefs, *cts, AY, AX)
+            rep5 = repeatable(torch, got, lambda: tpl.projline_sample_backward(
+                coefs, *cts, AY, AX))
+            _, rel5, ok5 = max_error(
+                [got], [tpl.projline_sample_backward_reference(coefs, *cts,
+                                                                AY, AX)],
+                SAMPLER_TOL)
+            case["k5"] = dict(max_rel_err=rel5, within_tol=ok5,
+                              repeatable=rep5)
+            grd_k = grd.to(torch.bfloat16)
+            got = tpl.projline_pixmom(grd_k, tgt, coefs, W)
+            rep6 = repeatable(torch, got, lambda: tpl.projline_pixmom(
+                grd_k, tgt, coefs, W))
+            _, rel6, ok6 = lane_error(
+                got, tpl.projline_pixmom_reference(grd_k, tgt, coefs, W))
+            _, rel_k4, ok_k4 = lane_error(got, torch.stack(tpl.pixel_moments(
+                *tpl.projline_sample_forward(grd_k, coefs, W,
+                                             with_dxy=False), tgt), -1))
+            case["k6"] = dict(max_rel_err=rel6, within_tol=ok6,
+                              repeatable=rep6, k4_contracted_max_rel_err=rel_k4,
+                              k4_contracted_within_tol=ok_k4)
+            bad += [f"{k} C={C} W={W}" for k, good in
+                    (("K5", ok5 and rep5), ("K6", ok6 and ok_k4 and rep6))
+                    if not good]
+            cases.append(case)
+    emit(dict(phase="kernel_edge_projlines", AY=AY, AX=AX, B=B, lines=V,
+              tol=dict(k4_k5=f"|err| <= {SAMPLER_TOL} * max|plain| + 1e-6",
+                       k6=f"|err| <= {SAMPLER_TOL} * max|plain lane| + 1e-6 "
+                       "per lane"),
+              cases=cases))
+    if bad:
+        fail("kernel_edge_projlines: disagrees with the plain version or is "
+             "not repeatable: " + ", ".join(bad))
+
 
 def serve_images(cfg, seed, n):
     """Seeded uint8 satellite and ground images, n of each."""
@@ -1592,6 +1748,7 @@ def main():
     shapes = phase_kernels(torch, dev, flush)
     phase_kernel_edge_lines(torch, dev)
     shapes.update(phase_g2sp_kernels(torch, dev, flush))
+    phase_kernel_edge_projlines(torch, dev)
     del flush
     k1, k2, k3 = (("banded_moments_kernel", 15), "banded_sample_kernel",
                   "banded_sample_backward_kernel")
@@ -1683,5 +1840,47 @@ def main():
                                  "count": torch.cuda.device_count()}})
 
 
+AB_CODE = """
+import torch, chip_smoke as cs
+from highlyaccurate_tpu_torch.ops import _build
+_build.build()
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+cs.phase_g2sp_kernels(torch, dev, torch.empty(256 << 20, dtype=torch.uint8,
+                                              device=dev))
+"""
+
+
+def ab_g2sp_kernels(parent):
+    """``python3 chip_smoke.py --ab-g2sp-kernels DIR``: ``phase_g2sp_kernels``
+    of the checkout in DIR (the parent commit, unpacked) and of this one,
+    on one card, in turns parent / this / this / parent, each in a process
+    of its own that builds its tree's kernels.  Prints every kernel_check
+    row with its tree and turn; fails if a run fails."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    here = os.path.dirname(os.path.abspath(__file__))
+    print(gpu_line(), flush=True)
+    for turn, tree in enumerate((parent, here, here, parent)):
+        run = subprocess.run([sys.executable, "-c", AB_CODE], cwd=tree,
+                             capture_output=True, text=True, timeout=900)
+        if run.returncode != 0:
+            fail(f"A/B turn {turn} in {tree} exited {run.returncode}: "
+                 f"{run.stderr[-4000:]}")
+        for line in run.stdout.splitlines():
+            try:
+                row = json.loads(line)
+            except ValueError:
+                continue
+            if row.get("phase") == "kernel_check":
+                emit(dict(row, tree="parent" if tree == parent else "change",
+                          turn=turn))
+
+
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--ab-g2sp-kernels":
+        ab_g2sp_kernels(os.path.abspath(sys.argv[2]))
+    else:
+        main()

@@ -9,7 +9,9 @@ coordinates h(u) = h0 + u*dh are affine in the satellite row u, so the
 samples lie at x(u) = (nx0 + dnx*u) / (d0 + dd*u), y(u) likewise.  K4
 samples the ground map [B, AY, AX, C] bilinearly at those points and emits
 out, dx, dy (and dxy, the cross derivative the coefficient gradients need)
-as [B, V, W, C]; K5 scatters their gradients back onto the map.
+as [B, V, W, C]; K5 takes their gradients back onto the map, each tile of
+the map gathered from the samples that touch it, in a fixed order (no
+atomics: the card's map gradients are bit-repeatable).
 ``projline_sample`` ties K4 and K5 into one autograd function with the
 coefficient gradients of the JAX custom VJP.  K6 (``projline_pixmom``,
 evaluation only) samples as K4 does and contracts each sample's out, dx, dy
@@ -225,9 +227,9 @@ projline_sample_forward.launches = 0
 def projline_sample_backward(coefs, g_o, g_dx, g_dy, AY: int, AX: int):
     """K5: the map gradient [B, AY, AX, C] float32 of K4's (out, dx, dy)
     under the cotangents g_o, g_dx, g_dy [B, V, W, C] float32.  The CUDA
-    kernel for CUDA tensors (or raises; its fp32 atomics sum each map cell
-    in a run-dependent order), ``projline_sample_backward_reference`` for
-    CPU tensors."""
+    kernel for CUDA tensors (or raises; it writes every element, each map
+    cell's sum in a fixed order, so two launches give the same bits),
+    ``projline_sample_backward_reference`` for CPU tensors."""
     if g_o.device.type == "cpu":
         return projline_sample_backward_reference(coefs, g_o, g_dx, g_dy,
                                                   AY, AX)
@@ -243,7 +245,8 @@ def projline_sample_backward(coefs, g_o, g_dx, g_dy, AY: int, AX: int):
                and t.data_ptr() % 8 == 0, k,
                f"{name} must be contiguous 8-byte aligned float32 "
                f"{tuple(g_o.shape)} on {dev}")
-    grad = torch.zeros(B, AY, AX, C, dtype=torch.float32, device=dev)
+    _check(B < 65536, k, f"batch {B} exceeds the launch grid")
+    grad = torch.empty(B, AY, AX, C, dtype=torch.float32, device=dev)
     fn = _entry("projline_sampler", "projline_sample_backward_launch",
                 (_P,) * 5 + (_I,) * 6 + (_P,))
     _run(k, fn, dev, coefs.data_ptr(), g_o.data_ptr(), g_dx.data_ptr(),
@@ -356,10 +359,13 @@ def projline_pixmom(grd_map, tgt, coefs, W: int):
     for a bf16 map; unit channel stride); tgt [B, V, W, C] float32 target
     rows in line order, any strides with unit channel stride (the model
     passes a transposed view of the satellite features); coefs [B, V, 16]
-    from ``pack_projline_coefs``.  Returns [B, V, W, 5] float32 in
-    ``PIXMOM_IDX`` lane order: the TPU kernel's 16-lane padding is a layout
-    of its own, so only the five used lanes are written.  Evaluation only,
-    as in JAX: it has no gradient and raises if autograd would need one.
+    from ``pack_projline_coefs``.  The CUDA kernel loads 8 channels at a
+    time, so on the card C must be a multiple of 8 and the rows of the map
+    and the target 16-byte aligned; it raises otherwise.  Returns
+    [B, V, W, 5] float32 in ``PIXMOM_IDX`` lane order: the TPU kernel's
+    16-lane padding is a layout of its own, so only the five used lanes
+    are written.  Evaluation only, as in JAX: it has no gradient and raises
+    if autograd would need one.
     """
     k = "projline_pixmom"
     if torch.is_grad_enabled() and any(t.requires_grad
@@ -378,14 +384,16 @@ def projline_pixmom(grd_map, tgt, coefs, W: int):
     _check(dev.type == "cuda", k, f"unsupported device {dev}")
     _check(coefs.device == dev and tgt.device == dev, k,
            f"coefs on {coefs.device}, tgt on {tgt.device}, map on {dev}")
-    _check(grd_k.stride(3) == 1 and all(s % 2 == 0 for s in grd_k.stride()[:3])
-           and grd_k.data_ptr() % 4 == 0, k,
-           "map needs unit channel stride and channel-pair alignment")
+    # the kernel loads 8 channels at a time, 16 bytes of map, 32 of target
+    _check(C % 8 == 0, k, f"channel count must be a multiple of 8, got {C}")
+    _check(grd_k.stride(3) == 1 and all(s % 8 == 0 for s in grd_k.stride()[:3])
+           and grd_k.data_ptr() % 16 == 0, k,
+           "map needs unit channel stride and 16-byte-aligned rows")
     _check(tgt.dtype == torch.float32 and tgt.stride(3) == 1
-           and all(s % 2 == 0 for s in tgt.stride()[:3])
-           and tgt.data_ptr() % 8 == 0, k,
-           "tgt must be float32 with unit channel stride and channel-pair "
-           "alignment")
+           and all(s % 4 == 0 for s in tgt.stride()[:3])
+           and tgt.data_ptr() % 16 == 0, k,
+           "tgt must be float32 with unit channel stride and 16-byte-aligned "
+           "rows")
     pm = torch.empty(B, V, W, len(PIXMOM_IDX), dtype=torch.float32,
                      device=dev)
     fn = _entry("projline_sampler", "projline_pixmom_launch",

@@ -10,6 +10,10 @@
   and y by ulps and the samples by up to ~1e-4 of their O(1) values; the
   moments sum C such products.  Limit per lane: 1e-4 x max|JAX lane| + 1e-6
   (measured up to 2.1e-5).
+* The same on the hand-made lines of ``chip_smoke.edge_projlines`` (a pole
+  inside the line, dd = 0, dnx = 0, dny = 0, samples converging on one
+  cell, lines along x = AX-2 and y = AY-2, a guard line, |dd| = 1e-7),
+  each package's ``pack_projline_coefs`` on its side, at the same limit.
 * ``lm_update_pixel_moments`` against JAX's on the same 16-lane moments:
   rtol 1e-5 (the same sums in another order, a 3x3 solve); on the port's
   own 5 lanes it equals ``lm_update_implicit_pixel`` to 1e-5.
@@ -19,7 +23,9 @@
   against the port's own K4 path on the same weights, bit for bit: on the
   CPU both run the plain K4 and the same five channel sums.
 * The CUDA kernel against the plain version, on the card only:
-  |err| <= 1e-5 x max|plain lane| + 1e-6.
+  |err| <= 1e-5 x max|plain lane| + 1e-6, also on the hand-made lines
+  written straight into lanes 0-5, and a second launch bit for bit; it
+  raises on a channel count that is no multiple of 8.
 
 The JAX package is imported inside the tests that use it, so the card test
 runs where JAX is absent:
@@ -30,6 +36,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (EDGE_AX, EDGE_AY, edge_projline_coefs,
+                        edge_projlines)
 from highlyaccurate_tpu_torch.ops import projline as tpl
 from highlyaccurate_tpu_torch.solver import updates as tu
 
@@ -86,6 +94,34 @@ def test_reference_matches_jax_pixmom(C, AX):
     kept = tpl._projline_cells(coefs, W, AY, AX)[4].numpy() > 0
     assert kept.mean() > 0.5
     assert not got[~kept].any()          # dropped samples: every lane zero
+    for name, lane in tpl.PIXMOM_IDX.items():
+        scale = np.abs(want[..., lane]).max()
+        assert scale > 0
+        np.testing.assert_allclose(got[..., lane], want[..., lane], rtol=0,
+                                   atol=1e-4 * scale + 1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("C,W", [(8, 130), (128, 24)])
+def test_reference_matches_jax_pixmom_edge_lines(C, W):
+    jax, jnp, jbw = _jax()
+    AY, AX = EDGE_AY, EDGE_AX
+    h0, dh = edge_projlines()
+    B, V = h0.shape[:2]
+    rng = np.random.RandomState(83)
+    img = _bf16_exact(rng.rand(B, AY, AX, C).astype(np.float32))
+    tgt = rng.rand(B, V, W, C).astype(np.float32)
+    coefs = tpl.pack_projline_coefs(torch.from_numpy(h0),
+                                    torch.from_numpy(dh), AY, AX, AY, W)
+    jcoefs = jbw.pack_projline_coefs(jnp.asarray(h0), jnp.asarray(dh), AY,
+                                     AX, AY, W)
+    pix = jbw.make_projline_pixmom(AY=AY, AX=AX, C=C, V=V, W=W,
+                                   interpret=True)
+    want = np.asarray(pix(jnp.asarray(img), jnp.asarray(tgt), jcoefs))
+    got = tpl.projline_pixmom(torch.from_numpy(img), torch.from_numpy(tgt),
+                              coefs, W).numpy()
+    kept = tpl._projline_cells(coefs, W, AY, AX)[4].numpy() > 0
+    assert kept.mean() > 0.5
+    assert not got[~kept].any()
     for name, lane in tpl.PIXMOM_IDX.items():
         scale = np.abs(want[..., lane]).max()
         assert scale > 0
@@ -264,16 +300,24 @@ def test_g2sp_pixmom_localizer_and_training_keep_k4():
 
 @pytest.mark.cuda
 def test_cuda_kernel_matches_reference():
-    """K6 against its plain version on the card, on a strided target view
-    and at a channel count that leaves lanes idle (C = 36)."""
+    """K6 against its plain version on the card, on a strided target view,
+    at a channel count whose 8-channel chunks do not fill the lane groups
+    (C = 40), and on the hand-made lines; a second launch gives the same
+    bits.  A channel count that is no multiple of 8 raises."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel has no CPU mode)")
-    for C, AX in ((36, 64), (256, 128)):
-        B, AY, V, W = 2, 32, 7, 21
-        h0, dh = _projlines(B, AY, AX, V, W, seed=C)
-        coefs = tpl.pack_projline_coefs(torch.from_numpy(h0).cuda(),
-                                        torch.from_numpy(dh).cuda(), AY, AX,
-                                        AY, W)
+    edge = edge_projline_coefs(torch, "cuda")
+    for C, AX, W, lines in ((40, 64, 21, None), (256, 128, 21, None),
+                            (64, EDGE_AX, 130, edge)):
+        B, AY, V = 2, 32, 7
+        if lines is None:
+            h0, dh = _projlines(B, AY, AX, V, W, seed=C)
+            coefs = tpl.pack_projline_coefs(torch.from_numpy(h0).cuda(),
+                                            torch.from_numpy(dh).cuda(), AY,
+                                            AX, AY, W)
+        else:
+            AY, coefs = EDGE_AY, lines
+            V = coefs.shape[1]
         rng = np.random.RandomState(C)
         img = torch.from_numpy(rng.rand(B, AY, AX, C).astype(
             np.float32)).cuda().to(torch.bfloat16)
@@ -287,3 +331,6 @@ def test_cuda_kernel_matches_reference():
         want = tpl.projline_pixmom_reference(img, tgt, coefs, W)
         scale = want.abs().flatten(0, 2).amax(0)
         assert ((got - want).abs() <= 1e-5 * scale + 1e-6).all()
+        assert torch.equal(got, tpl.projline_pixmom(img, tgt, coefs, W))
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tpl.projline_pixmom(img[..., :36], tgt[..., :36], coefs, W)

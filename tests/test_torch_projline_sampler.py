@@ -30,7 +30,15 @@ samplers is the identity.
 * The autograd function against autograd through the plain forward
   (1e-5), the map gradient bit-equal whether the map came in as bf16 or
   fp32 (K5 never reads the map), and the tensors the forward saves.
-* The CUDA kernels against the plain versions, on the card only.
+* The same on hand-made lines (``chip_smoke.edge_projlines``: a pole
+  inside the line, dd = 0, dnx = 0, dny = 0, samples converging on one
+  cell, tile-border starts, lines along x = AX-2 and y = AY-2, a guard
+  line, |dd| = 1e-7), each package's ``pack_projline_coefs`` on both
+  sides: the plain K4 at atol 1e-3, the plain VJP at 1e-4 of each
+  gradient's max.
+* The CUDA kernels against the plain versions, on the card only, also on
+  the hand-made lines written straight into lanes 0-5; K5 launched twice,
+  bit for bit.
 
 The JAX package is imported inside the tests that use it, so the card test
 runs where JAX is absent:
@@ -41,6 +49,8 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import (EDGE_AX, EDGE_AY, edge_projline_coefs,
+                        edge_projlines)
 from highlyaccurate_tpu_torch.geometry import kitti as tg
 from highlyaccurate_tpu_torch.ops import projline as tpl
 
@@ -182,6 +192,65 @@ def test_vjp_matches_jax(shape):
                                    err_msg=name)
 
 
+def _edge_coefs(jnp, jbw, W):
+    """The hand-made lines, packed by the port and by the JAX package:
+    (h0, dh, port coefs, JAX coefs)."""
+    h0, dh = edge_projlines()
+    AY, AX = EDGE_AY, EDGE_AX
+    coefs = tpl.pack_projline_coefs(torch.from_numpy(h0), torch.from_numpy(dh),
+                                    AY, AX, AY, W)
+    jcoefs = np.asarray(jbw.pack_projline_coefs(jnp.asarray(h0),
+                                                jnp.asarray(dh), AY, AX, AY,
+                                                W))
+    np.testing.assert_array_equal(coefs[..., :6].numpy(), jcoefs[..., :6])
+    return h0, dh, coefs, jcoefs
+
+
+@pytest.mark.parametrize("W", [24, 130])
+def test_reference_matches_jax_sampler_edge_lines(W):
+    jax, jnp, jbw = _jax()
+    AY, AX, C = EDGE_AY, EDGE_AX, 8
+    h0, dh, coefs, jcoefs = _edge_coefs(jnp, jbw, W)
+    B, V = h0.shape[:2]
+    grd = _map(20 + W, B, AY, AX, C)
+    sampler = jbw.make_projline_sampler(AY=AY, AX=AX, C=C, V=V, W=W,
+                                        interpret=True)
+    want = sampler(jnp.asarray(grd), jnp.asarray(jcoefs))
+    got = tpl.projline_sample_forward(torch.from_numpy(grd).to(
+        torch.bfloat16), coefs, W, with_dxy=False)
+    kept = tpl._projline_cells(coefs, W, AY, AX)[4]
+    assert kept.sum() > 0.5 * B * V * W
+    for name, g, w in zip(("out", "dx", "dy"), got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-3,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("W", [24, 130])
+def test_vjp_matches_jax_edge_lines(W):
+    jax, jnp, jbw = _jax()
+    AY, AX, C = EDGE_AY, EDGE_AX, 8
+    h0, dh, _, _ = _edge_coefs(jnp, jbw, W)
+    B, V = h0.shape[:2]
+    grd = _map(30 + W, B, AY, AX, C)
+    cts = _cotangents(31 + W, B, V, W, C)
+    sampler = jbw.make_projline_sampler(AY=AY, AX=AX, C=C, V=V, W=W,
+                                        interpret=True, differentiable=True)
+
+    def loss(g, a, b):
+        coefs = jbw.pack_projline_coefs(a, b, AY, AX, AY, W)
+        return sum(jnp.sum(o * c) for o, c in zip(sampler(g, coefs), cts))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(grd), jnp.asarray(h0), jnp.asarray(dh))
+    _, got = _port_grads(grd, h0, dh, cts, AY, AX, W)
+    for name, g, w in zip(("map", "h0", "dh"), got, want):
+        w = np.asarray(w)
+        scale = np.abs(w).max()
+        assert scale > 0
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4 * scale,
+                                   err_msg=name)
+
+
 def test_vjp_matches_autograd_through_plain_forward():
     """The hand-written VJP (K5's plain version and the coefficient
     gradients) against autograd through ``projline_sample_reference`` on
@@ -254,8 +323,10 @@ def test_projline_supported():
 @pytest.mark.cuda
 def test_cuda_kernels_match_reference():
     """K4 (with and without dxy, strided bf16 and fp32 maps) and K5
-    against their plain versions on the card.  K5 sums with atomics in a
-    run-dependent order: |err| <= 1e-5 x max|plain| + 1e-6."""
+    against their plain versions on the card, on G2SP lines and on the
+    hand-made lines.  K5 sums each map cell in another order than the plain
+    version, |err| <= 1e-5 x max|plain| + 1e-6, and in a fixed one: a
+    second launch gives the same bits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
     A, AY, AX, j0, C = FLAGSHIP[1]
@@ -285,3 +356,26 @@ def test_cuda_kernels_match_reference():
     want = tpl.projline_sample_backward_reference(coefs, *cts, AY, AX)
     scale = want.abs().max().item()
     assert (got - want).abs().max().item() <= 1e-5 * scale + 1e-6
+    assert torch.equal(got, tpl.projline_sample_backward(coefs, *cts, AY, AX))
+
+    # the hand-made lines, straight into lanes 0-5, at two widths of C
+    coefs = edge_projline_coefs(torch, "cuda")
+    AY, AX = EDGE_AY, EDGE_AX
+    B, V = coefs.shape[:2]
+    for C, W in ((64, 24), (192, 130)):
+        grd = torch.from_numpy(_map(16 + W, B, AY, AX, C)).cuda()
+        for dtype in (torch.float32, torch.bfloat16):
+            got = tpl.projline_sample_forward(grd.to(dtype), coefs, W,
+                                              with_dxy=True)
+            want = tpl.projline_sample_reference(grd.to(dtype), coefs, W, True)
+            for g, w in zip(got, want):
+                np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                           rtol=1e-5, atol=1e-6)
+        cts = [torch.from_numpy(c).cuda()
+               for c in _cotangents(17 + W, B, V, W, C)]
+        got = tpl.projline_sample_backward(coefs, *cts, AY, AX)
+        want = tpl.projline_sample_backward_reference(coefs, *cts, AY, AX)
+        scale = want.abs().max().item()
+        assert (got - want).abs().max().item() <= 1e-5 * scale + 1e-6
+        assert torch.equal(got, tpl.projline_sample_backward(coefs, *cts,
+                                                             AY, AX))
