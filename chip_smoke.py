@@ -70,6 +70,19 @@ Builds the hand-written kernels from the sources in the checkout, then:
    of the port at batch 2 (tables in chiprun_out/profile_ford_eval_b8.txt
    and profile_ford_train_b8.txt).
 
+9. cli_kitti: the KITTI CLI (``cli/train_kitti.main``, in this
+   process) at the flagship defaults, S2GP (16 synthetic samples) and G2SP
+   (8), batch 8, cuDNN's deterministic algorithms (so a run repeats bit
+   for bit): 2 epochs of training, each train step checked to launch
+   exactly 15 K2 and 15 K3 (G2SP: 15 K4 and 15 K5) and each evaluation
+   batch 15 K1 (G2SP: 15 K4); then ``--test 1`` on copies of the
+   experiment directory: float32 (its predictions equal epoch 1's
+   in-training evaluation bit for bit), bf16 features (the default;
+   within ``CLI_BF16_LIMIT`` of float32) and epoch 0's weights (for
+   scale).  Files under build/cli_smoke/, the CLI's printing in
+   chiprun_out/cli_kitti.log; images/s of the train steps without step 0
+   and each evaluation's ``time_per_image``.
+
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
 second checkout in DIR (the parent commit) and of this one in turns
 (``ab_g2sp_kernels``).
@@ -1704,6 +1717,220 @@ def phase_ford_main_path(torch, dev):
     return row, forward
 
 
+CLI_ROOT = "build/cli_smoke"
+# the flagship defaults of the CLI (sat 512, grd 256x1024, level 3,
+# N_iters 5), 2 epochs of synthetic data at batch 8
+CLI_RUNS = {"S2GP": ["--synthetic", "16", "--batch_size", "8"],
+            "G2SP": ["--direction", "G2SP", "--synthetic", "8",
+                     "--batch_size", "8"]}
+CLI_PER_CALL = {("S2GP", "train"): {"k2": 15, "k3": 15},
+                ("S2GP", "eval"): {"k1": 15},
+                ("G2SP", "train"): {"k4": 15, "k5": 15},
+                ("G2SP", "eval"): {"k4": 15}}
+# bf16 features against the float32 reload of the same weights: the
+# largest |pose difference| over test1 and test2 (m, deg).  Each limit
+# lies between the readings and a known perturbation, the effect of
+# epoch 1's two Adam steps at lr 1e-4 (float32 evaluations of model_0
+# against model_1, printed beside it).  H100, random weights: with cuDNN's
+# deterministic algorithms three runs read S2GP 0.166 m / 0.251 deg
+# against 1.170 / 0.542 and G2SP 0.011 / 0.018 against 0.165 / 0.282, bit
+# for bit alike; with its default algorithms (other weights in every run)
+# three runs read up to 0.466 / 0.459 against at least 1.003 / 0.561, and
+# up to 0.085 / 0.094 against at least 0.161 / 0.287.  The 15 LM rounds
+# of random weights amplify any change of the features.
+CLI_BF16_LIMIT = {"S2GP": (0.7, 0.5), "G2SP": (0.12, 0.17)}
+
+
+@contextlib.contextmanager
+def counted_steps(torch, family, log):
+    """The CLI's train and eval steps, each call checked to launch
+    exactly ``CLI_PER_CALL``'s kernels and timed on the host clock between
+    two ``torch.cuda.synchronize()`` (``log[kind]`` gets the seconds)."""
+    from highlyaccurate_tpu_torch.train import step as step_lib
+    makers = {"train": step_lib.make_train_step,
+              "eval": step_lib.make_eval_step}
+
+    def wrap(kind):
+        def make(*a, **kw):
+            step = makers[kind](*a, **kw)
+
+            def counted(*args):
+                before = {k: fn.launches for k, fn in _counters().items()}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = step(*args)
+                torch.cuda.synchronize()
+                log[kind].append(time.perf_counter() - t0)
+                got = {k: fn.launches - before[k]
+                       for k, fn in _counters().items()}
+                want = {k: CLI_PER_CALL[family, kind].get(k, 0) for k in got}
+                if got != want:
+                    fail(f"cli_kitti {family} {kind} step launched {got}, "
+                         f"expected {want}")
+                return out
+            return counted
+        return make
+
+    step_lib.make_train_step = wrap("train")
+    step_lib.make_eval_step = wrap("eval")
+    try:
+        yield
+    finally:
+        step_lib.make_train_step = makers["train"]
+        step_lib.make_eval_step = makers["eval"]
+
+
+def cli_results(save_path):
+    """The predictions of the last evaluation of each split ([N, 3]: lat m,
+    lon m, heading deg) and every ``Time per image`` of its results file."""
+    import scipy.io
+    out = {}
+    for split in ("Test1", "Test2"):
+        m = scipy.io.loadmat(os.path.join(save_path, f"{split}_results.mat"))
+        preds = np.concatenate([m["pred_shifts"], m["pred_headings"]], 1)
+        with open(os.path.join(save_path, f"{split}_results.txt")) as f:
+            tpi = [float(ln.split(":")[1]) for ln in f
+                   if ln.startswith("Time per image")]
+        out[split] = (preds, tpi)
+    return out
+
+
+def cli_run(torch, family, argv, expected):
+    """``train_kitti.main(argv)`` in this process with the launch counts set
+    to 0 just before and read just after (each kernel of ``expected``
+    exactly that often, no other); the CLI's own printing goes to
+    chiprun_out/cli_kitti.log.  Returns the step logs, the counts and the
+    seconds."""
+    from highlyaccurate_tpu_torch.cli import train_kitti
+    log = {"train": [], "eval": []}
+    os.makedirs("chiprun_out", exist_ok=True)
+    with counted_steps(torch, family, log), \
+            open("chiprun_out/cli_kitti.log", "a") as out, \
+            contextlib.redirect_stdout(out):
+        print(f"=== {family}: train_kitti {' '.join(argv)}", flush=True)
+        reset_launches()
+        t0 = time.perf_counter()
+        train_kitti.main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        counts = expect_launches(f"cli_kitti {family} {argv[:2]}", expected)
+    return log, counts, seconds
+
+
+def phase_cli_kitti(torch, gpu):
+    """The KITTI CLI at the flagship defaults, for S2GP and G2SP:
+    train 2 epochs on synthetic data (fp32, TF32 off), then ``--test 1``
+    on copies of its experiment directory: with ``--compute_dtype
+    float32``, whose predictions must equal the in-training evaluation of
+    epoch 1 bit for bit (the checkpoint round trip at full width), with
+    bf16 features (the default), within ``CLI_BF16_LIMIT`` of those, and
+    with epoch 0's weights (``model_0`` as ``model_1``), the effect of two
+    Adam steps, printed beside it for scale.  cuDNN runs its deterministic
+    algorithms here: the two epochs then train to the same weights in
+    every run, so the bf16 readings repeat (with the default algorithms
+    cuDNN's backward is not bit-deterministic, and the weights, and with
+    them the readings, differ from run to run)."""
+    import shutil
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        return {family: cli_family(torch, gpu, family, run)
+                for family, run in CLI_RUNS.items()}
+    finally:
+        torch.backends.cudnn.deterministic = False
+
+
+def cli_family(torch, gpu, family, run):
+    """``phase_cli_kitti`` for one family: the training run, the three
+    reloads, the checks; returns its row."""
+    import shutil
+
+    from highlyaccurate_tpu_torch.cli.train_kitti import parse_args
+    from highlyaccurate_tpu_torch.config import config_from_args
+    root = os.path.join(CLI_ROOT, family)
+    train_argv = ["--test", "0", "--epochs", "2", "--save_root",
+                  root] + run
+    args = parse_args(train_argv)
+    cfg = config_from_args(args)
+    steps = args.synthetic // cfg.batch_size          # per epoch
+    batches = 1 + -(-args.synthetic // cfg.batch_size)  # + warm-up
+    per = CLI_PER_CALL
+
+    def launches(n_train, n_eval):
+        out = {k: v * n_train for k, v in per[family, "train"].items()}
+        for k, v in per[family, "eval"].items():
+            out[k] = out.get(k, 0) + v * n_eval
+        return out
+
+    log, counts, train_s = cli_run(torch, family, train_argv,
+                                   launches(2 * steps, 2 * 2 * batches))
+    save_path = cfg.save_path(root)
+    trained = cli_results(save_path)
+    for name in ("model_0.pth", "model_1.pth"):
+        if not os.path.isfile(os.path.join(save_path, name)):
+            fail(f"cli_kitti {family}: no {name}")
+    for split, (preds, tpi) in trained.items():
+        if len(tpi) != 2 or not np.isfinite(preds).all():
+            fail(f"cli_kitti {family} {split}: {len(tpi)} result blocks,"
+                 f" finite predictions {np.isfinite(preds).all()}")
+
+    def reload(tag, argv, weights="model_1.pth"):
+        troot = os.path.join(CLI_ROOT, f"{family}_{tag}")
+        tpath = cfg.save_path(troot)
+        os.makedirs(tpath)
+        shutil.copy(os.path.join(save_path, weights),
+                    os.path.join(tpath, "model_1.pth"))
+        _, _, secs = cli_run(
+            torch, family, ["--test", "1", "--save_root", troot] + run
+            + argv, launches(0, 2 * batches))
+        return cli_results(tpath), secs
+
+    fp32, fp32_s = reload("fp32", ["--compute_dtype", "float32"])
+    bf16, bf16_s = reload("bf16", [])
+    epoch0, _ = reload("epoch0", ["--compute_dtype", "float32"],
+                       "model_0.pth")
+    bitwise = all(np.array_equal(fp32[k][0], trained[k][0])
+                  for k in trained)
+
+    def worst(res):
+        d = np.concatenate([np.abs(res[k][0] - fp32[k][0])
+                            for k in fp32])
+        return [float(d[:, :2].max()), float(d[:, 2].max())]
+
+    train_log = log["train"]
+    row = dict(
+        phase="cli_kitti", family=family, gpu=gpu,
+        config=f"KITTI {family} CLI, sat {cfg.sat_size}, grd "
+               f"{cfg.grd_h}x{cfg.grd_w}, level {cfg.level}, N_iters "
+               f"{cfg.N_iters}, batch {cfg.batch_size}, synthetic "
+               f"{args.synthetic}, 2 epochs, fp32 training, TF32 off, "
+               f"cuDNN deterministic",
+        train_steps=len(train_log), eval_batches=len(log["eval"]),
+        launches=counts,
+        train_images_per_s_without_step0=(
+            cfg.batch_size * (len(train_log) - 1) / sum(train_log[1:])),
+        train_step_s=train_log,
+        eval_time_per_image_s={k: v[1] for k, v in trained.items()},
+        reload_fp32_time_per_image_s={k: v[1] for k, v in fp32.items()},
+        reload_bf16_time_per_image_s={k: v[1] for k, v in bf16.items()},
+        run_s=train_s, reload_fp32_s=fp32_s, reload_bf16_s=bf16_s,
+        reload_fp32_bitwise_equal=bitwise,
+        bf16_vs_fp32_max_m_deg=worst(bf16),
+        epoch0_vs_epoch1_max_m_deg=worst(epoch0),
+        bf16_limit_m_deg=CLI_BF16_LIMIT[family])
+    emit(row)
+    if not bitwise:
+        fail(f"cli_kitti {family}: the float32 reload of model_1 does "
+             "not equal epoch 1's evaluation bit for bit")
+    lim = CLI_BF16_LIMIT[family]
+    got = row["bf16_vs_fp32_max_m_deg"]
+    if not (np.isfinite(got).all()
+            and all(g <= t for g, t in zip(got, lim))):
+        fail(f"cli_kitti {family}: bf16 evaluation {got} m/deg from the "
+             f"float32 one, limit {lim}")
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -1815,6 +2042,9 @@ def main():
                   "chiprun_out/profile_ford_train_b8.txt",
                   {"k2": k2, "k3": k3})
     del train
+    torch.cuda.empty_cache()
+
+    phase_cli_kitti(torch, gpu)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes

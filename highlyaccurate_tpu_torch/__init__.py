@@ -5,8 +5,10 @@ solver, fused-moment banded kernel) and its training step (differentiable
 banded sampler and its map gradient, loss method 0, Adam), the KITTI
 LM_G2SP evaluation and training step (projective-line sampler and its map
 gradient; the fused pixel-moment kernel with ``g2sp_pixel_moments=1``),
-and Ford LM_S2GP_Ford serving and training on the banded kernels, on an
-NVIDIA Hopper GPU.  Each module names its counterpart in
+Ford LM_S2GP_Ford serving and training on the banded kernels, and the KITTI
+training and evaluation CLI (``cli/train_kitti.py``, with its data
+pipeline, metrics, checkpoints and bf16 evaluation features), on an NVIDIA
+Hopper GPU.  Each module names its counterpart in
 ``highlyaccurate_tpu``; the JAX package stays the numerical reference and
 is never imported from here.
 
@@ -26,6 +28,8 @@ is never imported from here.
     state, metrics = step(state, sat, grd, camera_k, gt_pose, None)  # G2SP
     state, metrics = step(state, sat, grd, R_FL, T_FL, gt_pose,
                           generator)                             # Ford
+
+    python -m highlyaccurate_tpu_torch.cli.train_kitti --test 0 ...  # the CLI
 """
 
 __version__ = "0.1.0"

@@ -6,7 +6,8 @@ implementations.  Knobs that only shape the TPU kernels' schedule
 (``banded_u_chunk``, ``pad_input_channels``, ``remat``) are accepted and have
 no effect here: the JAX package documents them as numerically identical at
 every value.  Options the port does not carry yet are refused by the model
-(``models/lm_s2gp.py:check_supported``).
+(``models/lm_s2gp.py:check_supported``).  ``config_from_args`` resolves a
+CLI namespace as the JAX package's does.
 """
 
 from __future__ import annotations
@@ -143,3 +144,39 @@ class Config:
         if self.damping != 0.1:
             p += "_Damping" + str(self.damping)
         return os.path.normpath(os.path.join(root, p))
+
+
+def config_from_args(args) -> Config:
+    """Build a Config from an argparse Namespace (unknown fields ignored).
+
+    ``--use_banded_warp`` defaults to None in the CLIs so "unset" is
+    distinguishable: imported reference checkpoints (``--test --import_pth``)
+    were trained through torch's gather-equivalent sampler, and the JAX
+    package's recall study shows cross-sampler-path eval costs recall — so
+    unset resolves to the faithful gather path (0) there and to the banded
+    kernel (1) everywhere else.  Resolved HERE so every consumer of a parsed
+    Namespace gets a concrete int (not just the CLI main()).
+
+    ``--compute_dtype`` likewise defaults to None: unset resolves to
+    bfloat16 for evaluation of natively-trained checkpoints and to float32
+    for training and for ``--import_pth`` eval (strict reference
+    numerics).  ``--g2sp_restrict_grid`` unset resolves to the full grid
+    (0) on the faithful route, else 1.  A copy of the JAX package's
+    function, so both CLIs resolve a command line alike."""
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in vars(args).items() if k in fields}
+    faithful = bool(getattr(args, "test", 0)) \
+        and getattr(args, "import_pth", None)
+    if kw.get("use_banded_warp", 1) is None:
+        kw["use_banded_warp"] = 0 if faithful else 1
+    if kw.get("compute_dtype", "x") is None:
+        kw["compute_dtype"] = ("bfloat16" if getattr(args, "test", 0)
+                               and not faithful else "float32")
+    # the G2SP column restriction derives its bound from the
+    # DEFAULT camera K (1.1x FOV slack, 1.5x pose-range margin) — a drive
+    # with calibration outside that slack would silently deviate on the
+    # path that claims strict reference numerics.  Unset resolves to the
+    # full grid on the faithful --import_pth eval route.
+    if kw.get("g2sp_restrict_grid", 1) is None:
+        kw["g2sp_restrict_grid"] = 0 if faithful else 1
+    return Config(**kw)

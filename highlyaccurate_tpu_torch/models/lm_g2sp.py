@@ -13,7 +13,8 @@ W = A satellite rows), takes the per-pixel d(uv)/d(pose) from
 ``g2sp_uv_jac`` and solves ``lm_update_implicit_pixel`` against the
 satellite features of those columns (residual grd_proj - sat, no feature
 normalization, no re-init, damping used raw).  Evaluation samples a bf16
-copy of each ground map made once per forward; with ``g2sp_pixel_moments``
+copy of each ground map made once per forward (a no-op under bf16
+features, ``compute_dtype="bfloat16"``); with ``g2sp_pixel_moments``
 it runs K6 instead of K4, which contracts the samples with the target into
 five moments per pixel, and solves ``lm_update_pixel_moments`` (JAX
 ``lm_g2sp.py:235-255``).  Training keeps K4 whatever that flag says: it
@@ -42,7 +43,7 @@ from torch import nn
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import kitti as geom
 from highlyaccurate_tpu_torch.losses.losses import loss_func
-from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw
+from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw, feature_dtype
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.projline import (pack_projline_coefs,
                                                    projline_pixmom,
@@ -68,8 +69,6 @@ def check_supported(cfg: Config):
         (not cfg.banded_bf16_map, "banded_bf16_map=0"),
         (not cfg.use_banded_warp, "use_banded_warp=0"),
         (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
-        (cfg.compute_dtype != "float32",
-         f"compute_dtype={cfg.compute_dtype!r}"),
     ]
     for bad, name in refused:
         if bad:
@@ -100,8 +99,8 @@ class LMG2SP(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         dev = resolve_device(device)
-        self.SatFeatureNet = VGGUnet(cfg.level)
-        self.GrdFeatureNet = VGGUnet(cfg.level)
+        self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
+        self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
         # raw damping, initialised at cfg.damping (reference
         # models_kitti.py:41); used only with train_damping
         self.damping = nn.Parameter(torch.full((1, 3), float(cfg.damping)))
@@ -190,11 +189,13 @@ class LMG2SP(nn.Module):
         cfg = self.cfg
         maps, targets = [], []
         for lvl, slot in enumerate(self._slots):
-            # constant across rounds: the eval map cast and the targets
+            # constant across rounds: the eval map cast and the targets,
+            # read in float32 (a no-op unless the features are bf16)
             maps.append(grd_feats[lvl] if train
                         else grd_feats[lvl].to(torch.bfloat16))
             j0 = self._col_start[slot]
-            targets.append(sat_feats[lvl][:, :, j0:].transpose(1, 2))
+            targets.append(sat_feats[lvl].to(torch.float32)[:, :, j0:]
+                           .transpose(1, 2))
         pose, traj = pose0, []
         for _ in range(cfg.N_iters):
             for lvl, slot in enumerate(self._slots):

@@ -19,7 +19,10 @@ Only the bottom half of the ground rows is sampled (the sky crop).  The
 satellite map goes to the kernels as a transposed view (kernel y = sat u,
 kernel x = sat v).  Evaluation casts it to the map dtype once per forward,
 since it does not change across rounds; training casts it inside the
-autograd function, so its gradient stays float32.
+autograd function, so its gradient stays float32.  With
+``compute_dtype="bfloat16"`` both branches compute in bf16 (``VGGUnet``),
+the map is bf16 as ``banded_bf16_map`` makes it, and the target rows are
+read in float32, as in JAX.
 
 ``check_supported`` refuses every option this port does not carry yet with
 ``NotImplementedError``; ``loss_method`` other than 0 is refused when a
@@ -40,7 +43,9 @@ from highlyaccurate_tpu_torch.losses.losses import loss_func
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.banded_warp import (banded_moments,
                                                       banded_sample,
-                                                      default_rb)
+                                                      banded_sample_forward,
+                                                      default_rb,
+                                                      pack_row_coefs)
 from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
                                                      lm_update_from_moments,
                                                      lm_update_implicit)
@@ -62,8 +67,6 @@ def check_supported(cfg: Config):
         (not cfg.use_fused_moments, "use_fused_moments=0"),
         (not cfg.use_banded_warp, "use_banded_warp=0"),
         (not cfg.use_implicit_lm, "use_implicit_lm=0"),
-        (cfg.compute_dtype != "float32",
-         f"compute_dtype={cfg.compute_dtype!r}"),
     ]
     for bad, name in refused:
         if bad:
@@ -71,6 +74,19 @@ def check_supported(cfg: Config):
                 f"{name} is not supported by highlyaccurate_tpu_torch yet "
                 "(this slice carries KITTI S2GP geo LM evaluation and "
                 "training)")
+
+
+def feature_dtype(cfg: Config) -> torch.dtype:
+    """The VGGUnet compute dtype of ``cfg.compute_dtype`` (flax semantics:
+    float32 parameters, convs and activations in this dtype)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" \
+        else torch.float32
+
+
+def bf16_map(cfg: Config) -> bool:
+    """Whether the banded kernels sample a bf16 map: ``banded_bf16_map``,
+    implied by bf16 features (JAX ``lm_s2gp.py:89``)."""
+    return bool(cfg.banded_bf16_map) or cfg.compute_dtype == "bfloat16"
 
 
 def banded_project(cfg: Config, sat_feat, uv01, duv01, mask_vw,
@@ -107,16 +123,15 @@ def banded_project(cfg: Config, sat_feat, uv01, duv01, mask_vw,
 
     uvk = kernel_axes(uv01, -1)
     sat_k = sat_feat.transpose(1, 2) if swap else sat_feat  # (y, x) view
-    bf16_map = bool(cfg.banded_bf16_map)
     if moments_grd is None:
         out, dkx, dky = banded_sample(sat_k, uvk[:, :, 0], uvk[:, :, 1],
                                       W=mask_vw.shape[1], RB=RB,
-                                      bf16_map=bf16_map)
+                                      bf16_map=bf16_map(cfg))
         du, dv = (dky, dkx) if swap else (dkx, dky)
         P0 = duv01[:, :, 0]                           # [B, V, 2, 3]
         return out, du, dv, P0, duv01[:, :, 1] - P0
     M = banded_moments(sat_k, moments_grd, mask_vw, uvk[:, :, 0],
-                       uvk[:, :, 1], RB=RB, bf16_map=bf16_map)
+                       uvk[:, :, 1], RB=RB, bf16_map=bf16_map(cfg))
     P0s = kernel_axes(duv01[:, :, 0], -2)             # [B, V, 2, 3]
     dPs = kernel_axes(duv01[:, :, 1] - duv01[:, :, 0], -2)
     return M, P0s, dPs
@@ -168,8 +183,8 @@ class BandedS2GPBase(nn.Module):
         per-slot (xyz [H, W, 3], mask [H, W], ...)."""
         self.cfg = cfg
         dev = resolve_device(device)
-        self.SatFeatureNet = VGGUnet(cfg.level)
-        self.GrdFeatureNet = VGGUnet(cfg.level)
+        self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
+        self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
         self.damping = nn.Parameter(torch.zeros(damping_shape))
         self._slots = level_slots(cfg)
         self.lm_cfg = lm_cfg
@@ -220,14 +235,17 @@ class BandedS2GPBase(nn.Module):
                     train: bool, geo: tuple = ()):
         """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]."""
         cfg = self.cfg
-        map_dtype = (torch.bfloat16 if cfg.banded_bf16_map and not train
+        map_dtype = (torch.bfloat16 if bf16_map(cfg) and not train
                      else torch.float32)
         sats, grds = [], []
         for lvl in range(len(self._slots)):
-            # constant across rounds: the map cast and the kept target rows
+            # constant across rounds: the map cast and the kept target
+            # rows, which K1 and the moments read in float32 (JAX's K1
+            # wrapper casts them too)
             sats.append(sat_feats[lvl].to(map_dtype))
             H = grd_feats[lvl].shape[1]
-            grds.append(grd_feats[lvl][:, H // 2:].contiguous())
+            grds.append(grd_feats[lvl][:, H // 2:].to(torch.float32)
+                        .contiguous())
         pose, traj = pose0, []
         for _ in range(cfg.N_iters):
             for lvl, slot in enumerate(self._slots):
@@ -327,3 +345,44 @@ class LMS2GP(BandedS2GPBase):
             gt_pose[:, 2].float())
         return self._outputs(mode, traj[..., 1], traj[..., 0], traj[..., 2],
                              *gt)
+
+    @torch.no_grad()
+    def project_at_pose(self, sat_map, grd_img, pred_pose, gt_pose):
+        """Per-level feature maps for ``--visualize`` PCA dumps (port of JAX
+        ``lm_s2gp.py:559``; the reference's in-forward visualization
+        inputs, models_kitti.py:1285-1293).
+
+        sat_map [B, A, A, 3], grd_img [B, H, W, 3]; pred_pose, gt_pose
+        [B, 3] normalized.  Returns per level (sat_feat [B, A', A', C],
+        grd_feat [B, H', W', C], proj_at_pred, proj_at_gt [B, H', W', C]):
+        the satellite features projected into every ground pixel at each
+        pose, float32, zero where the ray misses the ground.  JAX samples
+        with its gather sampler; here every ground row's line goes through
+        K2 (``banded_sample_forward``) on a float32 map, so rows that fail
+        the banded validity guard come out zero.
+        """
+        cfg = self.cfg
+        rays = precompute_rays(cfg)
+        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        outs = []
+        for lvl, slot in enumerate(self._slots):
+            xyz, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device) for a in rays[slot][:2])
+            sat_k = sat_feats[lvl].to(torch.float32).transpose(1, 2)
+            A, W = sat_k.shape[1], mask.shape[1]
+
+            def project(pose):
+                uv01, _ = geom.s2gp_uv_jac(
+                    pose.to(torch.float32), xyz[:, :2], A,
+                    cfg.rotation_range, cfg.shift_range_lat,
+                    cfg.shift_range_lon)
+                uvk = uv01.flip(-1)                   # kernel (x, y) order
+                coefs = pack_row_coefs(uvk[:, :, 0], uvk[:, :, 1], A,
+                                       default_rb(A), W)
+                out = banded_sample_forward(sat_k, coefs, W,
+                                            with_dxy=False)[0]
+                return out * mask[None, :, :, None]
+
+            outs.append((sat_feats[lvl], grd_feats[lvl], project(pred_pose),
+                         project(gt_pose)))
+        return outs

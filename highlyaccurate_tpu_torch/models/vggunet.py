@@ -13,6 +13,12 @@ Parameter names follow the reference's torch ``state_dict``
 module takes [B, H, W, 3] and returns [B, h, w, C] features and [B, h, w, 1]
 confidences.  Inside, the convolutions run on channels-last NCHW views of
 the same memory, so no copy is made at either end.
+
+``dtype`` is the compute dtype, with flax's semantics as the JAX package
+uses them (``compute_dtype``): the parameters stay float32 and each conv
+casts them, with its input, to ``dtype``, so a bf16 branch runs its convs,
+activations, pools, upsampling and confidence heads in bf16; the feature
+normalisation takes its norm in float32 and divides in the feature dtype.
 """
 
 from __future__ import annotations
@@ -32,9 +38,9 @@ def l2_norm_wholemap(x):
     """Normalize each sample's whole map to unit L2 norm, floored at 1e-24
     on the squared norm (reference VGG.py:511-514)."""
     B = x.shape[0]
-    sq = torch.sum((x * x).reshape(B, -1), dim=-1)
-    norm = torch.sqrt(torch.clamp_min(sq, 1e-24))
-    return x / norm.reshape(B, 1, 1, 1)
+    flat = x.reshape(B, -1).to(torch.float32)
+    norm = torch.sqrt(torch.clamp_min(torch.sum(flat * flat, dim=-1), 1e-24))
+    return x / norm.reshape(B, 1, 1, 1).to(x.dtype)
 
 
 def max_pool_2x2(x):
@@ -51,8 +57,17 @@ def _upsample_nearest(x, target_hw):
     return F.interpolate(x, size=(th, tw), mode="nearest")
 
 
+class _Conv(nn.Conv2d):
+    """3x3 conv, padding 1, computed in its input's dtype: the float32
+    parameters are cast to it at each call (flax ``Conv(dtype=...)``)."""
+
+    def forward(self, x):
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+
+
 def _conv(cin, cout, bias):
-    return nn.Conv2d(cin, cout, 3, padding=1, bias=bias)
+    return _Conv(cin, cout, 3, padding=1, bias=bias)
 
 
 def _conv_block(cin, mid, out):
@@ -75,11 +90,12 @@ class VGGUnet(nn.Module):
     slot are not run (their outputs would be discarded).
     """
 
-    def __init__(self, level: int):
+    def __init__(self, level: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         if level not in LEVEL_SLOTS:
             raise ValueError(f"unsupported level {level}")
         self.level = level
+        self.dtype = dtype
         self.slots = LEVEL_SLOTS[level]
         self.conv0 = _conv(3, 64, True)
         self.conv2 = _conv(64, 64, True)
@@ -98,7 +114,8 @@ class VGGUnet(nn.Module):
 
     def forward(self, x) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         # NHWC in -> channels-last NCHW view (no copy for contiguous input)
-        x = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+        x = x.to(self.dtype).permute(0, 3, 1, 2).contiguous(
+            memory_format=torch.channels_last)
         relu = F.relu
         x2 = self.conv2(relu(self.conv0(x)))
         x3 = max_pool_2x2(x2)                       # H/2

@@ -1,5 +1,10 @@
-"""The train step (port of ``highlyaccurate_tpu/train/step.py:101-156``,
-single device; data-parallel training is not ported yet).
+"""The train and eval steps and the host-to-device prefetch (port of
+``highlyaccurate_tpu/train/step.py:80-215``), on one device.
+
+The JAX module also builds the data-parallel mesh (``make_mesh``,
+``make_mesh_for_batch``, ``shard_batch``, ``replicate``,
+``eval_batch_pad``); the port runs on one device and has no counterpart of
+them yet (queue A6, ``torch.distributed``).
 
     state = create_train_state(cfg, model)
     step = make_train_step(model, cfg)
@@ -17,6 +22,7 @@ they are.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 
 import torch
@@ -69,5 +75,50 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
         metrics = {"loss": out.loss.detach()}
         metrics.update((k, getattr(out, k).detach()) for k in METRICS)
         return dataclasses.replace(state, step=state.step + 1), metrics
+
+    return step
+
+
+def device_prefetch(batches, place, depth: int = 2):
+    """Double-buffered host-to-device pipeline: ``place`` maps a host batch
+    to device tensors without waiting (``to_device``), and ``depth`` placed
+    batches stay in flight, so batch N+1's copy overlaps batch N's
+    compute."""
+    q = collections.deque()
+    for b in batches:
+        q.append(place(b))
+        if len(q) >= depth:
+            yield q.popleft()
+    while q:
+        yield q.popleft()
+
+
+def to_device(x, device: torch.device) -> torch.Tensor:
+    """A host array (numpy or tensor) on ``device``: for a GPU through a
+    pinned host buffer and a ``non_blocking`` copy, which returns at once
+    (the caching host allocator keeps the buffer until the copy is done);
+    for the CPU the array itself."""
+    t = torch.as_tensor(x)
+    if device.type == "cpu":
+        return t
+    return t.pin_memory().to(device, non_blocking=True)
+
+
+def make_eval_step(model: torch.nn.Module, cfg: Config):
+    """Inference: the final (shift_lat, shift_lon, theta), each [B].
+
+    S2GP (an ``LMS2GP``): ``step(sat, grd, generator)``; G2SP (an
+    ``LMG2SP``): ``step(sat, grd, camera_k, generator)`` (G2SP never
+    re-inits and ignores the generator).  The model holds its weights;
+    the step runs under ``torch.no_grad()``."""
+    g2sp = cfg.direction == "G2SP"
+
+    @torch.no_grad()
+    def step(sat, grd, *rest):
+        if g2sp:
+            camera_k, _ = rest
+            return model(sat, grd, camera_k, mode="test")
+        (generator,) = rest
+        return model(sat, grd, mode="test", generator=generator)
 
     return step

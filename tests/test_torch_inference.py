@@ -100,7 +100,10 @@ UNSUPPORTED = [
     dict(direction="G2SP"), dict(proj="polar"), dict(Optimizer="SGD"),
     dict(using_weight=1), dict(use_gt_depth=1), dict(dropout=2),
     dict(level_first=1), dict(pose_hypotheses=4), dict(use_fused_moments=0),
-    dict(use_banded_warp=0), dict(compute_dtype="bfloat16"),
+    dict(use_banded_warp=0),
+    # KITTI S2GP and G2SP serve bf16 features (tests/test_torch_bf16.py);
+    # Ford still refuses them
+    dict(compute_dtype="bfloat16", ford=True),
 ]
 
 
@@ -108,9 +111,14 @@ UNSUPPORTED = [
                          ids=[next(iter(o)) for o in UNSUPPORTED])
 def test_unsupported_options_raise(opt):
     from highlyaccurate_tpu_torch.inference import Localizer
+    opt = dict(opt)
+    rig = (dict(ford_extrinsics=(np.eye(3, dtype=np.float32),
+                                 np.zeros(3, np.float32)),
+                ford_side_m=100.0) if opt.pop("ford", False) else {})
     name = next(iter(opt))
     with pytest.raises(NotImplementedError, match=name):
-        Localizer(Config(**TINY, **opt), random_init=True, device="cpu")
+        Localizer(Config(**TINY, **opt), random_init=True, device="cpu",
+                  **rig)
 
 
 def test_unsupported_entry_options_raise():

@@ -229,7 +229,10 @@ REFUSED = {
     "use_banded_warp": dict(use_banded_warp=0),
     "Optimizer_NN": dict(Optimizer="NN"),
     "pose_hypotheses": dict(pose_hypotheses=4),
-    "compute_dtype": dict(compute_dtype="bfloat16"),
+    # bf16 features are served (tests/test_torch_bf16.py), but they do not
+    # lift the refusal of banded_bf16_map=0: for G2SP that flag leaves the
+    # banded path in JAX whatever the compute dtype (lm_g2sp.py:230-234)
+    "compute_dtype": dict(banded_bf16_map=0, compute_dtype="bfloat16"),
 }
 
 
