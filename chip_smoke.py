@@ -81,11 +81,29 @@ Builds the hand-written kernels from the sources in the checkout, then:
    within ``CLI_BF16_LIMIT`` of float32) and epoch 0's weights (for
    scale).  Files under build/cli_smoke/, the CLI's printing in
    chiprun_out/cli_kitti.log; images/s of the train steps without step 0
-   and each evaluation's ``time_per_image``.
+   and each evaluation's ``time_per_image``;
+10. gather_main_path: the gather sampler path (``use_banded_warp=0``) of
+   S2GP, G2SP and Ford serving at the flagship widths on the weights and
+   images of the banded phases: ``GATHER_BATCHES`` batches of
+   ``Localizer.predict`` that launch no hand kernel (frames/s, ms/batch,
+   a profile of one forward in chiprun_out/profile_gather_<family>
+   _eval_b8.txt), the card against a CPU run at batch 2
+   (``GATHER_ROUND1_TOL``), the poses against the banded path's (printed,
+   not gated); one S2GP train step through the gather path against a CPU
+   run at batch 2 (``GATHER_TRAIN_TOL``); and G2SP at a 32-row ground
+   input, whose coarse level takes the gather sampler and the others K4
+   (exactly 10 K4 launches per batch), against a CPU run;
+11. cli_ford: the Ford CLI (``cli/train_ford.main``) at the flagship
+   defaults as cli_kitti drives the KITTI one (16 synthetic samples with
+   the Ford data's rig, 2 epochs, each train step 15 K2 and 15 K3, each
+   evaluation batch 15 K1; ``--test 1`` reloads of ``Model_best`` at
+   float32, bit for bit, and bf16, within ``CLI_BF16_LIMIT``), then one
+   ``--transformer 1`` epoch from a ``Model_best`` in the base experiment,
+   whose feature networks must stay bit-equal (chiprun_out/cli_ford.log).
 
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
-second checkout in DIR (the parent commit) and of this one in turns
-(``ab_g2sp_kernels``).
+second checkout in DIR (the parent commit) and of this one in turns, and
+``--ab-e2e DIR`` the S2GP serving and training cells (``ab_turns``).
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -1717,18 +1735,203 @@ def phase_ford_main_path(torch, dev):
     return row, forward
 
 
+# the gather sampler path (use_banded_warp=0): card vs CPU limits on the
+# round-1 pose of serving at batch 2, and on one S2GP train step at batch 2
+# in the three parts of TRAIN_TOL; each limit sits between the reading and
+# a known perturbation, TF32 convolutions (H100: round 1 read 1.7e-7
+# / 1.2e-8 / 2.9e-7 / 2.2e-7 against 1.6e-5 / 9.7e-6 / 6.6e-5 / 1.1e-4
+# with TF32; the step's loss 1.4e-7 against 3.8e-5, its gradients 1.5e-3
+# over all and 2.7e-3 at worst against 0.09 and 0.13; the solver's feature
+# gradients 1.3e-4, a second card run 0; see PERF.md section 6)
+GATHER_BATCHES = 4     # each gather serving window
+GATHER_ROUND1_TOL = {"S2GP": 3e-6, "G2SP": 1e-6, "Ford": 5e-6,
+                     "G2SP32": 5e-6}
+GATHER_TRAIN_TOL = {("end_to_end", "loss_rel_err"): 5e-6,
+                    ("end_to_end", "grad_rel_l2_all"): 1e-2,
+                    ("solver_only", "loss_rel_err"): 5e-6,
+                    ("solver_only", "feature_grad_rel_l2_max"): 2e-3,
+                    ("nets_only", "grad_rel_l2_max"): 2e-2,
+                    ("nets_only", "grad_rel_l2_all"): 1e-2}
+
+
+def gather_spec(torch, dev, family):
+    """(config overrides, model class, images seed, Localizer kwargs, the
+    forward's extra inputs for n images, its keyword inputs) of a family's
+    serving phase, as the banded phases drive it."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.models.ford import LMS2GPFord
+    from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
+    from highlyaccurate_tpu_torch.models.lm_s2gp import (LMS2GP,
+                                                         _scaled_default_k)
+    if family == "S2GP":
+        return {}, LMS2GP, 0, {}, lambda n: (), True
+    if family == "Ford":
+        R, T = ford_rig(torch, BATCH)
+        return ({}, LMS2GPFord, 4, dict(ford_extrinsics=(R[0].numpy(),
+                                                         T[0].numpy()),
+                                        ford_side_m=FORD_SIDE_M),
+                lambda n: (FORD_SIDE_M, R[:n], T[:n]), True)
+    kw = (dict(direction="G2SP") if family == "G2SP"
+          else dict(direction="G2SP", grd_h=32, grd_w=128))
+    k = _scaled_default_k(Config(**kw))
+    k8 = torch.from_numpy(k).to(dev).expand(BATCH, 3, 3).contiguous()
+    return kw, LMG2SP, 2, dict(camera_k=k), lambda n: (k8[:n],), False
+
+
+def gather_family(torch, dev, family):
+    """One family's serving through ``Localizer`` with ``use_banded_warp=0``
+    at the flagship widths, on the weights and images of its banded phase:
+    a window of ``GATHER_BATCHES`` batches that launches no hand kernel;
+    the card against a CPU run of the port at batch 2; the gather poses
+    against the banded path's on the same weights and inputs, for scale.
+    Returns (row, forward)."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.inference import Localizer
+    kw, cls, seed, loc_kw, extra, reinit = gather_spec(torch, dev, family)
+    cfg = Config(use_banded_warp=0, **kw)
+    t0 = time.perf_counter()
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                    **loc_kw)
+    init_s = time.perf_counter() - t0
+    sat, grd = serve_images(cfg, seed, BATCH * GATHER_BATCHES)
+    window = serve_window(torch, loc, sat, grd, f"{family} gather serving",
+                          {})
+    model = loc.model
+    s8, g8 = first_batch(torch, dev, sat, grd)
+
+    def gen(device):
+        return (dict(generator=torch.Generator(device=device).manual_seed(0))
+                if reinit else {})
+
+    def forward():
+        return model(s8, g8, *extra(BATCH), mode="test",
+                     **(dict(generator=loc._generator) if reinit else {}))
+
+    def traj(m, n, device):
+        args = [a.to(device) if torch.is_tensor(a) and family != "Ford"
+                else a for a in extra(n)]
+        if family == "Ford":   # the rig stays on the host
+            args = [args[0]] + [a.cpu() for a in args[1:]]
+        return m(s8[:n].to(device), g8[:n].to(device), *args,
+                 mode="trajectory", **gen(device))
+
+    split = split_ms(torch, model, s8, g8, forward)
+    cpu = cpu_twin(cls, model)
+    vs_cpu = traj_vs_cpu(torch, lambda: traj(model, 2, dev),
+                         lambda: traj(cpu, 2, "cpu"),
+                         GATHER_ROUND1_TOL[family], f"{family} gather")
+    del cpu
+    banded = cls(Config(**kw), device=dev)
+    banded.load_state_dict(model.state_dict())
+    reset_launches()
+    with torch.no_grad():
+        d = (torch.stack(traj(model, BATCH, dev), -1)
+             - torch.stack(traj(banded, BATCH, dev), -1)).abs()
+    del banded
+    row = serve_row(
+        "gather_main_path", f"{family} geo LM, use_banded_warp=0 (the gather "
+        f"sampler), sat {cfg.sat_size}, grd {cfg.grd_h}x{cfg.grd_w}, level "
+        f"{cfg.level}, N_iters {cfg.N_iters}, fp32 features, TF32 off",
+        window, split, init_s,
+        family=family, traj_card_vs_cpu=vs_cpu, poses_vs_banded=dict(
+            batch=BATCH, round1_max_abs=float(d[:, 0, 0].max()),
+            final_max_abs=float(d[:, -1, -1].max())))
+    return row, forward
+
+
+def phase_gather_main_path(torch, dev, gpu):
+    """The gather sampler path on the card: S2GP, G2SP and Ford serving
+    (``gather_family``, each with a profile of one forward), one S2GP train
+    step through the gather path against a CPU run at batch 2, and G2SP at
+    a 32-row ground input, whose coarse level takes the gather sampler and
+    the other two the projective-line kernels (exactly 10 K4 launches per
+    batch and no other kernel), against a CPU run at batch 2.  Prints the
+    phase's seconds."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
+    from highlyaccurate_tpu_torch.params import init_params
+    t_phase = time.perf_counter()
+    for family in ("S2GP", "G2SP", "Ford"):
+        row, forward = gather_family(torch, dev, family)
+        eval_profile(torch, f"profile_gather_{family.lower()}", forward,
+                     row["forward_ms_per_batch"],
+                     f"chiprun_out/profile_gather_{family.lower()}_eval_b8"
+                     ".txt", {})
+        del forward
+        torch.cuda.empty_cache()
+
+    # one S2GP train step through the gather path, card against CPU
+    cfg = Config(use_banded_warp=0)
+    model = LMS2GP(cfg, device="cpu")
+    init_params(model, torch.Generator().manual_seed(0))
+    weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    rng = np.random.RandomState(1)
+    b = TRAIN_CHECK_BATCH
+    batch = tuple(torch.from_numpy(a).to(dev) for a in (
+        (rng.rand(b, cfg.sat_size, cfg.sat_size, 3) * 255).astype(
+            np.uint8).astype(np.float32) / 255.0,
+        (rng.rand(b, cfg.grd_h, cfg.grd_w, 3) * 255).astype(
+            np.uint8).astype(np.float32) / 255.0,
+        rng.uniform(-1, 1, (b, 3)).astype(np.float32)))
+    reset_launches()
+    check = card_vs_cpu(torch, LMS2GP, cfg, weights, batch, dev, s2gp_loss,
+                        contextlib.nullcontext)
+    expect_launches("gather train step", {})
+    emit(dict(phase="gather_train_card_vs_cpu", batch=b, **check, limits={
+        f"{part}.{key}": tol for (part, key), tol in
+        GATHER_TRAIN_TOL.items()}))
+    check_limits("gather train step", check, GATHER_TRAIN_TOL)
+    torch.cuda.empty_cache()
+
+    # G2SP at a 32-row ground input: the per-slot mixed choice
+    from highlyaccurate_tpu_torch.inference import Localizer
+    kw, cls, seed, loc_kw, extra, _ = gather_spec(torch, dev, "G2SP32")
+    cfg = Config(**kw)
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                    **loc_kw)
+    if loc.model._projline != {0: False, 1: True, 2: True}:
+        fail(f"G2SP 32-row: slot samplers {loc.model._projline}")
+    sat, grd = serve_images(cfg, seed, BATCH * 2)
+    out, wall, counts, _ = serve_window(
+        torch, loc, sat, grd, "G2SP 32-row serving",
+        {"k4": cfg.N_iters * 2})
+    s8, g8 = first_batch(torch, dev, sat, grd)
+    cpu = cpu_twin(cls, loc.model)
+    k2 = extra(2)[0]
+    vs_cpu = traj_vs_cpu(
+        torch, lambda: loc.model(s8[:2], g8[:2], k2, mode="trajectory"),
+        lambda: cpu(s8[:2].cpu(), g8[:2].cpu(), k2.cpu(), mode="trajectory"),
+        GATHER_ROUND1_TOL["G2SP32"], "G2SP 32-row")
+    emit(dict(phase="gather_g2sp_32row", gpu=gpu,
+              config=f"KITTI G2SP geo LM, sat {cfg.sat_size}, grd "
+                     f"{cfg.grd_h}x{cfg.grd_w} (slot 0 on the gather "
+                     "sampler, slots 1-2 on K4), level 3, N_iters "
+                     f"{cfg.N_iters}, fp32 features, bf16 map, TF32 off",
+              batch=BATCH, images=out["lateral_m"].shape[0], wall_s=wall,
+              k4_launches=counts["k4"],
+              k4_launches_per_batch=counts["k4"] // 2,
+              traj_card_vs_cpu=vs_cpu,
+              lateral_m_first=out["lateral_m"][:4].tolist()))
+    emit(dict(phase="gather_main_path_total",
+              seconds=time.perf_counter() - t_phase))
+
+
 CLI_ROOT = "build/cli_smoke"
-# the flagship defaults of the CLI (sat 512, grd 256x1024, level 3,
+# the flagship defaults of each CLI (sat 512, grd 256x1024, level 3,
 # N_iters 5), 2 epochs of synthetic data at batch 8
 CLI_RUNS = {"S2GP": ["--synthetic", "16", "--batch_size", "8"],
             "G2SP": ["--direction", "G2SP", "--synthetic", "8",
-                     "--batch_size", "8"]}
+                     "--batch_size", "8"],
+            "Ford": ["--synthetic", "16", "--batch_size", "8"]}
 CLI_PER_CALL = {("S2GP", "train"): {"k2": 15, "k3": 15},
                 ("S2GP", "eval"): {"k1": 15},
                 ("G2SP", "train"): {"k4": 15, "k5": 15},
-                ("G2SP", "eval"): {"k4": 15}}
+                ("G2SP", "eval"): {"k4": 15},
+                ("Ford", "train"): {"k2": 15, "k3": 15},
+                ("Ford", "eval"): {"k1": 15}}
 # bf16 features against the float32 reload of the same weights: the
-# largest |pose difference| over test1 and test2 (m, deg).  Each limit
+# largest |pose difference| over the evaluated splits (m, deg).  Each limit
 # lies between the readings and a known perturbation, the effect of
 # epoch 1's two Adam steps at lr 1e-4 (float32 evaluations of model_0
 # against model_1, printed beside it).  H100, random weights: with cuDNN's
@@ -1737,8 +1940,29 @@ CLI_PER_CALL = {("S2GP", "train"): {"k2": 15, "k3": 15},
 # for bit alike; with its default algorithms (other weights in every run)
 # three runs read up to 0.466 / 0.459 against at least 1.003 / 0.561, and
 # up to 0.085 / 0.094 against at least 0.161 / 0.287.  The 15 LM rounds
-# of random weights amplify any change of the features.
-CLI_BF16_LIMIT = {"S2GP": (0.7, 0.5), "G2SP": (0.12, 0.17)}
+# of random weights amplify any change of the features.  Ford,
+# deterministic cuDNN, two runs in fresh processes: 0.254 m / 0.340 deg
+# both, against 1.612 / 0.886.
+CLI_BF16_LIMIT = {"S2GP": (0.7, 0.5), "G2SP": (0.12, 0.17),
+                  "Ford": (0.8, 0.6)}
+
+
+def cli_phase(family):
+    return "cli_ford" if family == "Ford" else "cli_kitti"
+
+
+def cli_module(family):
+    """The CLI module of ``family``: the Ford CLI or the KITTI one."""
+    if family == "Ford":
+        from highlyaccurate_tpu_torch.cli import train_ford
+        return train_ford
+    from highlyaccurate_tpu_torch.cli import train_kitti
+    return train_kitti
+
+
+def cli_save_path(family, cfg, root):
+    return (cfg.save_path_ford(root) if family == "Ford"
+            else cfg.save_path(root))
 
 
 @contextlib.contextmanager
@@ -1765,8 +1989,8 @@ def counted_steps(torch, family, log):
                        for k, fn in _counters().items()}
                 want = {k: CLI_PER_CALL[family, kind].get(k, 0) for k in got}
                 if got != want:
-                    fail(f"cli_kitti {family} {kind} step launched {got}, "
-                         f"expected {want}")
+                    fail(f"{cli_phase(family)} {family} {kind} step "
+                         f"launched {got}, expected {want}")
                 return out
             return counted
         return make
@@ -1780,15 +2004,19 @@ def counted_steps(torch, family, log):
         step_lib.make_eval_step = makers["eval"]
 
 
-def cli_results(save_path):
+def cli_results(family, save_path):
     """The predictions of the last evaluation of each split ([N, 3]: lat m,
-    lon m, heading deg) and every ``Time per image`` of its results file."""
+    lon m, heading deg) and every ``Time per image`` of its results file:
+    KITTI's test1 and test2, Ford's test log 0."""
     import scipy.io
+    files = ({"log0": ("0_result.mat", "0_results.txt")} if family == "Ford"
+             else {s: (f"{s}_results.mat", f"{s}_results.txt")
+                   for s in ("Test1", "Test2")})
     out = {}
-    for split in ("Test1", "Test2"):
-        m = scipy.io.loadmat(os.path.join(save_path, f"{split}_results.mat"))
+    for split, (mat, txt) in files.items():
+        m = scipy.io.loadmat(os.path.join(save_path, mat))
         preds = np.concatenate([m["pred_shifts"], m["pred_headings"]], 1)
-        with open(os.path.join(save_path, f"{split}_results.txt")) as f:
+        with open(os.path.join(save_path, txt)) as f:
             tpi = [float(ln.split(":")[1]) for ln in f
                    if ln.startswith("Time per image")]
         out[split] = (preds, tpi)
@@ -1796,64 +2024,86 @@ def cli_results(save_path):
 
 
 def cli_run(torch, family, argv, expected):
-    """``train_kitti.main(argv)`` in this process with the launch counts set
-    to 0 just before and read just after (each kernel of ``expected``
-    exactly that often, no other); the CLI's own printing goes to
-    chiprun_out/cli_kitti.log.  Returns the step logs, the counts and the
-    seconds."""
-    from highlyaccurate_tpu_torch.cli import train_kitti
+    """The family's CLI ``main(argv)`` in this process with the launch
+    counts set to 0 just before and read just after (each kernel of
+    ``expected`` exactly that often, no other); the CLI's own printing
+    goes to chiprun_out/<phase>.log.  Returns the step logs, the counts
+    and the seconds."""
     log = {"train": [], "eval": []}
+    phase = cli_phase(family)
     os.makedirs("chiprun_out", exist_ok=True)
     with counted_steps(torch, family, log), \
-            open("chiprun_out/cli_kitti.log", "a") as out, \
+            open(f"chiprun_out/{phase}.log", "a") as out, \
             contextlib.redirect_stdout(out):
-        print(f"=== {family}: train_kitti {' '.join(argv)}", flush=True)
+        print(f"=== {family}: {' '.join(argv)}", flush=True)
         reset_launches()
         t0 = time.perf_counter()
-        train_kitti.main(argv)
+        cli_module(family).main(argv)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
-        counts = expect_launches(f"cli_kitti {family} {argv[:2]}", expected)
+        counts = expect_launches(f"{phase} {family} {argv[:2]}", expected)
     return log, counts, seconds
 
 
-def phase_cli_kitti(torch, gpu):
-    """The KITTI CLI at the flagship defaults, for S2GP and G2SP:
-    train 2 epochs on synthetic data (fp32, TF32 off), then ``--test 1``
-    on copies of its experiment directory: with ``--compute_dtype
-    float32``, whose predictions must equal the in-training evaluation of
-    epoch 1 bit for bit (the checkpoint round trip at full width), with
-    bf16 features (the default), within ``CLI_BF16_LIMIT`` of those, and
-    with epoch 0's weights (``model_0`` as ``model_1``), the effect of two
-    Adam steps, printed beside it for scale.  cuDNN runs its deterministic
-    algorithms here: the two epochs then train to the same weights in
-    every run, so the bf16 readings repeat (with the default algorithms
-    cuDNN's backward is not bit-deterministic, and the weights, and with
-    them the readings, differ from run to run)."""
-    import shutil
-    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+@contextlib.contextmanager
+def deterministic_cudnn(torch):
+    """cuDNN's deterministic algorithms: a training run then gives the
+    same weights in every run, so the bf16 readings repeat (with the
+    default algorithms cuDNN's backward is not bit-deterministic, and the
+    weights, and with them the readings, differ from run to run)."""
     torch.backends.cudnn.deterministic = True
     try:
-        return {family: cli_family(torch, gpu, family, run)
-                for family, run in CLI_RUNS.items()}
+        yield
     finally:
         torch.backends.cudnn.deterministic = False
 
 
-def cli_family(torch, gpu, family, run):
-    """``phase_cli_kitti`` for one family: the training run, the three
-    reloads, the checks; returns its row."""
+def phase_cli_kitti(torch, gpu):
+    """The KITTI CLI at the flagship defaults, for S2GP and G2SP
+    (``cli_family``)."""
+    import shutil
+    shutil.rmtree(CLI_ROOT, ignore_errors=True)
+    with deterministic_cudnn(torch):
+        return {family: cli_family(torch, gpu, family)
+                for family in ("S2GP", "G2SP")}
+
+
+def phase_cli_ford(torch, gpu):
+    """The Ford CLI at the flagship defaults (``cli_family``), on
+    ``SyntheticFord``'s Ford rig, then one ``--transformer 1`` epoch."""
+    with deterministic_cudnn(torch):
+        return cli_family(torch, gpu, "Ford")
+
+
+def cli_family(torch, gpu, family):
+    """A CLI at the flagship defaults for one family: train 2 epochs on
+    synthetic data (fp32, TF32 off, cuDNN deterministic), then ``--test
+    1`` on copies of its experiment directory: with ``--compute_dtype
+    float32``, whose predictions must equal the in-training evaluation of
+    epoch 1 bit for bit (the checkpoint round trip at full width), with
+    bf16 features (the default), within ``CLI_BF16_LIMIT`` of those, and
+    with epoch 0's weights, the effect of two Adam steps, printed beside
+    it for scale.  KITTI reloads ``model_1`` and evaluates test1 and
+    test2; Ford reloads ``Model_best`` (a copy of epoch 1's weights) and
+    evaluates its test log, then trains one ``--transformer 1`` epoch from
+    a ``Model_best`` in the base experiment, whose two feature networks
+    must stay bit-equal.  Returns its row."""
     import shutil
 
-    from highlyaccurate_tpu_torch.cli.train_kitti import parse_args
-    from highlyaccurate_tpu_torch.config import config_from_args
+    run = CLI_RUNS[family]
+    phase = cli_phase(family)
+    ford = family == "Ford"
     root = os.path.join(CLI_ROOT, family)
+    shutil.rmtree(root, ignore_errors=True)
     train_argv = ["--test", "0", "--epochs", "2", "--save_root",
                   root] + run
-    args = parse_args(train_argv)
+    mod = cli_module(family)
+    from highlyaccurate_tpu_torch.config import config_from_args
+    args = mod.parse_args(train_argv)
     cfg = config_from_args(args)
     steps = args.synthetic // cfg.batch_size          # per epoch
     batches = 1 + -(-args.synthetic // cfg.batch_size)  # + warm-up
+    splits = 1 if ford else 2
     per = CLI_PER_CALL
 
     def launches(n_train, n_eval):
@@ -1863,27 +2113,29 @@ def cli_family(torch, gpu, family, run):
         return out
 
     log, counts, train_s = cli_run(torch, family, train_argv,
-                                   launches(2 * steps, 2 * 2 * batches))
-    save_path = cfg.save_path(root)
-    trained = cli_results(save_path)
+                                   launches(2 * steps, 2 * splits * batches))
+    save_path = cli_save_path(family, cfg, root)
+    trained = cli_results(family, save_path)
     for name in ("model_0.pth", "model_1.pth"):
         if not os.path.isfile(os.path.join(save_path, name)):
-            fail(f"cli_kitti {family}: no {name}")
+            fail(f"{phase} {family}: no {name}")
     for split, (preds, tpi) in trained.items():
         if len(tpi) != 2 or not np.isfinite(preds).all():
-            fail(f"cli_kitti {family} {split}: {len(tpi)} result blocks,"
+            fail(f"{phase} {family} {split}: {len(tpi)} result blocks,"
                  f" finite predictions {np.isfinite(preds).all()}")
+    reload_name = "Model_best.pth" if ford else "model_1.pth"
 
     def reload(tag, argv, weights="model_1.pth"):
         troot = os.path.join(CLI_ROOT, f"{family}_{tag}")
-        tpath = cfg.save_path(troot)
+        shutil.rmtree(troot, ignore_errors=True)
+        tpath = cli_save_path(family, cfg, troot)
         os.makedirs(tpath)
         shutil.copy(os.path.join(save_path, weights),
-                    os.path.join(tpath, "model_1.pth"))
+                    os.path.join(tpath, reload_name))
         _, _, secs = cli_run(
             torch, family, ["--test", "1", "--save_root", troot] + run
-            + argv, launches(0, 2 * batches))
-        return cli_results(tpath), secs
+            + argv, launches(0, splits * batches))
+        return cli_results(family, tpath), secs
 
     fp32, fp32_s = reload("fp32", ["--compute_dtype", "float32"])
     bf16, bf16_s = reload("bf16", [])
@@ -1899,12 +2151,12 @@ def cli_family(torch, gpu, family, run):
 
     train_log = log["train"]
     row = dict(
-        phase="cli_kitti", family=family, gpu=gpu,
-        config=f"KITTI {family} CLI, sat {cfg.sat_size}, grd "
-               f"{cfg.grd_h}x{cfg.grd_w}, level {cfg.level}, N_iters "
-               f"{cfg.N_iters}, batch {cfg.batch_size}, synthetic "
-               f"{args.synthetic}, 2 epochs, fp32 training, TF32 off, "
-               f"cuDNN deterministic",
+        phase=phase, family=family, gpu=gpu,
+        config=f"{'Ford' if ford else 'KITTI ' + family} CLI, sat "
+               f"{cfg.sat_size}, grd {cfg.grd_h}x{cfg.grd_w}, level "
+               f"{cfg.level}, N_iters {cfg.N_iters}, batch "
+               f"{cfg.batch_size}, synthetic {args.synthetic}, 2 epochs, "
+               f"fp32 training, TF32 off, cuDNN deterministic",
         train_steps=len(train_log), eval_batches=len(log["eval"]),
         launches=counts,
         train_images_per_s_without_step0=(
@@ -1918,17 +2170,54 @@ def cli_family(torch, gpu, family, run):
         bf16_vs_fp32_max_m_deg=worst(bf16),
         epoch0_vs_epoch1_max_m_deg=worst(epoch0),
         bf16_limit_m_deg=CLI_BF16_LIMIT[family])
+    if ford:
+        row.update(cli_ford_transformer(torch, family, cfg, save_path, root,
+                                        run, steps, launches(
+                                            steps, splits * batches)))
     emit(row)
     if not bitwise:
-        fail(f"cli_kitti {family}: the float32 reload of model_1 does "
-             "not equal epoch 1's evaluation bit for bit")
+        fail(f"{phase} {family}: the float32 reload does not equal epoch "
+             "1's evaluation bit for bit")
     lim = CLI_BF16_LIMIT[family]
     got = row["bf16_vs_fp32_max_m_deg"]
     if not (np.isfinite(got).all()
             and all(g <= t for g, t in zip(got, lim))):
-        fail(f"cli_kitti {family}: bf16 evaluation {got} m/deg from the "
+        fail(f"{phase} {family}: bf16 evaluation {got} m/deg from the "
              f"float32 one, limit {lim}")
+    if ford and not row["transformer_backbones_bitwise_equal"]:
+        fail("cli_ford: --transformer 1 changed the frozen backbones")
     return row
+
+
+def cli_ford_transformer(torch, family, cfg, base_path, root, run, steps,
+                         expected):
+    """One ``--transformer 1`` epoch of the Ford CLI: ``Model_best`` in the
+    base experiment (its restore path; a copy of epoch 1's weights, since
+    random data may never raise the rank) seeds the model, and both
+    feature networks must come out of the epoch bit-equal.  Returns the
+    row's entries."""
+    import shutil
+    best = os.path.join(base_path, "Model_best.pth")
+    shutil.copy(os.path.join(base_path, "model_1.pth"), best)
+    argv = ["--test", "0", "--epochs", "1", "--transformer", "1",
+            "--save_root", root] + run
+    from highlyaccurate_tpu_torch.config import config_from_args
+    restore, tpath = config_from_args(
+        cli_module(family).parse_args(argv)).ford_paths(root)
+    if os.path.normpath(restore) != os.path.normpath(base_path):
+        fail(f"cli_ford: --transformer restores from {restore}, not "
+             f"{base_path}")
+    log, _, secs = cli_run(torch, family, argv, expected)
+    want = torch.load(best, map_location="cpu", weights_only=True)
+    got = torch.load(os.path.join(tpath, "model_0.pth"), map_location="cpu",
+                     weights_only=True)
+    frozen = [k for k in want
+              if k.startswith(("SatFeatureNet.", "GrdFeatureNet."))]
+    return dict(transformer_train_steps=len(log["train"]),
+                transformer_run_s=secs,
+                transformer_backbones_bitwise_equal=bool(
+                    frozen and len(log["train"]) == steps
+                    and all(torch.equal(got[k], want[k]) for k in frozen)))
 
 
 def kernel_entry(name, source, replaces, launches, rows):
@@ -2045,6 +2334,12 @@ def main():
     torch.cuda.empty_cache()
 
     phase_cli_kitti(torch, gpu)
+    torch.cuda.empty_cache()
+    phase_gather_main_path(torch, dev, gpu)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_cli_ford(torch, gpu)
+    emit(dict(phase="cli_ford_total", seconds=time.perf_counter() - t0))
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes
@@ -2070,32 +2365,52 @@ def main():
                                  "count": torch.cuda.device_count()}})
 
 
-AB_CODE = """
+AB_SETUP = """
 import torch, chip_smoke as cs
 from highlyaccurate_tpu_torch.ops import _build
 _build.build()
 torch.backends.cudnn.allow_tf32 = False
 torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
+"""
+# per A/B flag: the code of one turn after AB_SETUP, and the phases of the
+# rows it prints
+AB_RUNS = {
+    "--ab-g2sp-kernels": ("""
 cs.phase_g2sp_kernels(torch, dev, torch.empty(256 << 20, dtype=torch.uint8,
                                               device=dev))
-"""
+""", ("kernel_check",)),
+    "--ab-e2e": ("""
+from highlyaccurate_tpu_torch import Config
+from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
+cs.phase_main_path(torch, dev)
+torch.cuda.empty_cache()
+cs.train_phase(torch, dev, "train", "KITTI S2GP", LMS2GP, Config(), 1,
+               cs.TRAIN_STEPS, lambda n: (), cs.s2gp_loss, cs.plain_k2_k3,
+               cs.TRAIN_TOL, ("k2", "k3"))
+""", ("main_path", "train")),
+}
 
 
-def ab_g2sp_kernels(parent):
-    """``python3 chip_smoke.py --ab-g2sp-kernels DIR``: ``phase_g2sp_kernels``
-    of the checkout in DIR (the parent commit, unpacked) and of this one,
-    on one card, in turns parent / this / this / parent, each in a process
-    of its own that builds its tree's kernels.  Prints every kernel_check
-    row with its tree and turn; fails if a run fails."""
+def ab_turns(flag, parent):
+    """``python3 chip_smoke.py FLAG DIR``: the run of ``AB_RUNS[FLAG]`` for
+    the checkout in DIR (the parent commit, unpacked) and for this one, on
+    one card, in turns parent / this / this / parent, each in a process of
+    its own that builds its tree's kernels: ``--ab-g2sp-kernels`` times
+    K4-K6 (``phase_g2sp_kernels``), ``--ab-e2e`` the S2GP serving and
+    training cells (``phase_main_path``, ``train_phase``).  Prints every
+    row of the run's phases with its tree and turn; fails if a run
+    fails."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
+    code, phases = AB_RUNS[flag]
     here = os.path.dirname(os.path.abspath(__file__))
     print(gpu_line(), flush=True)
     for turn, tree in enumerate((parent, here, here, parent)):
-        run = subprocess.run([sys.executable, "-c", AB_CODE], cwd=tree,
-                             capture_output=True, text=True, timeout=900)
+        run = subprocess.run([sys.executable, "-c", AB_SETUP + code],
+                             cwd=tree, capture_output=True, text=True,
+                             timeout=900)
         if run.returncode != 0:
             fail(f"A/B turn {turn} in {tree} exited {run.returncode}: "
                  f"{run.stderr[-4000:]}")
@@ -2104,13 +2419,13 @@ def ab_g2sp_kernels(parent):
                 row = json.loads(line)
             except ValueError:
                 continue
-            if row.get("phase") == "kernel_check":
+            if row.get("phase") in phases:
                 emit(dict(row, tree="parent" if tree == parent else "change",
                           turn=turn))
 
 
 if __name__ == "__main__":
-    if len(sys.argv) == 3 and sys.argv[1] == "--ab-g2sp-kernels":
-        ab_g2sp_kernels(os.path.abspath(sys.argv[2]))
+    if len(sys.argv) == 3 and sys.argv[1] in AB_RUNS:
+        ab_turns(sys.argv[1], os.path.abspath(sys.argv[2]))
     else:
         main()

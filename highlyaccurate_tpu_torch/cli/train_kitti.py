@@ -13,10 +13,11 @@ epoch's evaluation runs on the same model.  Checkpoints are torch
 ``state_dict`` files in the reference layout (``<save_path>/model_<n>.pth``,
 ``Model_best.pth``); the result files are the reference's
 (``Test{1,2}_results.txt`` and ``.mat``).  ``--remat`` and
-``--use_banded_warp 2`` are accepted and change no output; the gather
-sampler (``--use_banded_warp 0``, the faithful default of ``--test 1
---import_pth``) and ``--pose_hypotheses > 1`` raise
-``NotImplementedError`` naming the option.
+``--use_banded_warp 2`` are accepted and change no output.
+``--use_banded_warp 0`` runs the gather sampler; it is the faithful
+default of ``--test 1 --import_pth``, which also resolves to the full G2SP
+grid and float32 features, as the JAX CLI does.  ``--pose_hypotheses > 1``
+raises ``NotImplementedError`` naming the option.
 
 Quirks kept on purpose: Adam is re-created every epoch with a poly-decayed
 lr; ``--test 1`` loads ``model_1`` as the reference loads ``model_1.pth``.
@@ -103,10 +104,11 @@ def parse_args(argv=None):
                    help="accepted for the JAX CLI's command lines; no "
                         "effect here")
     p.add_argument("--use_banded_warp", type=int, default=None,
-                   help="banded sampler (any nonzero value). Default 1, "
+                   help="banded sampler (any nonzero value; 0 = the gather "
+                        "sampler, the reference's numerics). Default 1, "
                         "except when evaluating --import_pth checkpoints "
-                        "(0, the gather sampler, which is not ported yet: "
-                        "pass --use_banded_warp 1 there)")
+                        "(0: reference weights were trained through the "
+                        "gather-equivalent sampler)")
     p.add_argument("--pose_hypotheses", type=int, default=1,
                    help="multi-start LM hypotheses at eval (not ported "
                         "yet: only 1)")
@@ -125,17 +127,10 @@ def parse_args(argv=None):
 
 def build_model(cfg: Config, device):
     """The model of ``cfg.direction`` on ``device``.  The model's
-    ``check_supported`` refuses what the port does not carry; the gather
-    sampler, which ``--test 1 --import_pth`` selects by default, is refused
-    here with the way round."""
+    ``check_supported`` refuses what the port does not carry, naming the
+    option."""
     from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
     from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
-    if not cfg.use_banded_warp:
-        raise NotImplementedError(
-            "use_banded_warp=0 (the gather sampler, the faithful default of "
-            "--test 1 --import_pth) is not supported by "
-            "highlyaccurate_tpu_torch yet; pass --use_banded_warp 1 to "
-            "evaluate on the banded kernels")
     return {"S2GP": LMS2GP, "G2SP": LMG2SP}[cfg.direction](cfg,
                                                            device=device)
 
@@ -384,6 +379,11 @@ def main(argv=None):
 
     args = parse_args(argv)
     np.random.seed(args.seed)
+    if args.use_banded_warp is None and args.test and args.import_pth:
+        # the resolution itself lives in config_from_args; just surface it
+        print("note: --import_pth defaults to the reference-faithful "
+              "gather sampler (--use_banded_warp 0); pass "
+              "--use_banded_warp 1 to opt into the banded kernel")
     cfg = config_from_args(args)
     device = resolve_device(args.device)
     save_path = cfg.save_path(args.save_root)
@@ -397,9 +397,10 @@ def main(argv=None):
         from highlyaccurate_tpu_torch.train.checkpoint import load_params
         if args.import_pth:
             model.load_state_dict(load_pth(args.import_pth))
-            print("note: evaluating an imported reference checkpoint with "
-                  "the banded sampler; the JAX package's faithful path for "
-                  "torch-trained weights is --use_banded_warp 0")
+            if cfg.use_banded_warp:
+                print("note: evaluating an imported reference checkpoint "
+                      "with the banded sampler; the faithful path for "
+                      "torch-trained weights is --use_banded_warp 0")
         else:
             # reference quirk: --test 1 loads model_1.pth (train_kitti.py:546)
             load_params(save_path, "model_1", model)

@@ -145,6 +145,49 @@ class Config:
             p += "_Damping" + str(self.damping)
         return os.path.normpath(os.path.join(root, p))
 
+    def ford_paths(self, root: str = "."):
+        """Reference-identical Ford (restore_path, save_path)
+        (train_ford.py:415-455).
+
+        ``restore_path`` is non-None only for the ``--transformer`` variant:
+        it points at the base experiment directory whose Model_best seeds the
+        (frozen) feature backbones (train_ford.py:499-511).
+        """
+        p = (
+            f"./ModelsFord/LM_{self.direction}"
+            f"/lat{self.shift_range_lat}m_lon{self.shift_range_lon}m_rot{self.rotation_range}"
+            f"_Lev{self.level}_Nit{self.N_iters}"
+            f"_Wei{self.using_weight}"
+            f"_Dam{self.train_damping}"
+            f"_Load{self.Load}_{self.Optimizer}"
+            f"_loss{self.loss_method}"
+            f"_{self.coe_shift_lat}_{self.coe_shift_lon}_{self.coe_heading}"
+            f"_{self.coe_L1}_{self.coe_L2}_{self.coe_L3}_{self.coe_L4}"
+            f"_Start{self.train_log_start}_End{self.train_log_end}"
+        )
+        restore = None
+        if self.transformer:
+            restore = p
+            p += "_transformer"
+        if self.estimate_depth:
+            p += "_Depth1"
+        if self.level_first:
+            p += "_Level1st"
+        if self.proj != "geo":
+            p += "_" + self.proj
+        if self.use_hessian:
+            p += "_Hess"
+        if self.dropout > 0:
+            p += "_Dropout" + str(self.dropout)
+        if self.train_whole:
+            p += "_Whole"
+        restore = os.path.normpath(os.path.join(root, restore)) \
+            if restore else None
+        return restore, os.path.normpath(os.path.join(root, p))
+
+    def save_path_ford(self, root: str = ".") -> str:
+        return self.ford_paths(root)[1]
+
 
 def config_from_args(args) -> Config:
     """Build a Config from an argparse Namespace (unknown fields ignored).

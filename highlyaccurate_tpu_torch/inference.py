@@ -117,9 +117,9 @@ class Localizer:
         (reference train_kitti.py:77-80).
 
         Ford only: ``R_FL`` [N, 3, 3] / ``T_FL`` [N, 3] override the
-        constructor's extrinsics per image (mixed camera rigs; images whose
-        rigs take different kernel layouts, ``ford.sample_layouts``, go in
-        separate batches).
+        constructor's extrinsics per image (mixed camera rigs; on the
+        banded path, images whose rigs take different kernel layouts,
+        ``ford.sample_layouts``, go in separate batches).
         G2SP only: ``camera_k`` [N, 3, 3] (or [3, 3], one rig), the
         intrinsics of the grd_h x grd_w input; required unless the
         constructor got ``camera_k=``.
@@ -168,7 +168,7 @@ class Localizer:
                                           generator=self._generator)
             return lat.cpu().numpy(), lon.cpu().numpy(), th.cpu().numpy()
 
-        if self._ford:
+        if self._ford and cfg.use_banded_warp:
             swap = ford.sample_layouts(extras["R_FL"])
             if swap.any() != swap.all():
                 # one launch takes one kernel layout: serve each apart

@@ -45,7 +45,8 @@ def loss_func(loss_method: int, shift_lats, shift_lons, thetas,
     if loss_method != 0:
         raise NotImplementedError(
             f"loss_method={loss_method} is not supported by "
-            "highlyaccurate_tpu_torch yet (it needs the gather projection)")
+            "highlyaccurate_tpu_torch yet (it needs the projected feature "
+            "maps of every round)")
     lat_d = (shift_lats - gt_shift_lat[:, None, None]).abs().mean(0)  # [I, L]
     lon_d = (shift_lons - gt_shift_lon[:, None, None]).abs().mean(0)
     th_d = (thetas - gt_theta[:, None, None]).abs().mean(0)

@@ -1,14 +1,22 @@
-"""LM_S2GP_Ford evaluation and training (port of the banded LM paths of
-``highlyaccurate_tpu/models/ford.py:40-99, 132-197, 453-529``).
+"""LM_S2GP_Ford evaluation and training (port of
+``highlyaccurate_tpu/models/ford.py:40-130, 132-260, 393-420, 453-529``).
 
 The Ford model is KITTI's S2GP with the Ford camera chain
 (``geometry/ford.py``): each round runs ``ford_uv_jac`` with the per-sample
 camera extrinsics R_FL [B, 3, 3], T_FL [B, 3] and the satellite patch's
-side length in meters at ground columns u = 0, 1 of each kept row, then the
-shared ``banded_project``: K1 and ``lm_update_from_moments`` in
-evaluation, K2 / K3 and ``lm_update_implicit`` in training.  Only the bottom
-half of the ground rows is sampled.  Ford keeps the reference's
-differences from KITTI:
+side length in meters, then the round of the shared base
+(``models/lm_s2gp.py`` ``S2GPBase``): on the banded path, at ground columns
+u = 0, 1 of each kept row, K1 and ``lm_update_from_moments`` in
+evaluation, K2 / K3 and ``lm_update_implicit`` in training (or in
+evaluation with ``use_fused_moments=0``), K2's samples and ``lm_update``
+with ``use_implicit_lm=0``; on the gather path (``use_banded_warp=0``) at
+every pixel of the kept rows, ``grid_sample_derivs`` and
+``lm_update_implicit_pixel_norm`` (JAX ``ford.py:198-215``), or
+``grid_sample`` with the Jacobian and ``lm_update``.  Only the bottom half
+of the ground rows is sampled.  ``compute_dtype="bfloat16"`` gives bf16
+features with the rules of KITTI S2GP (``feature_dtype``: float32
+parameters cast at each conv, a bf16 banded map, float32 target rows).
+Ford keeps the reference's differences from KITTI:
 * the solver updates all three DoF whatever ``active_pose_dims`` says, with
   normalized features, and re-inits the shifts that leave the range (not
   gated on a DoF freeze, models_ford.py:453-458);
@@ -27,8 +35,8 @@ port picks the kernel layout per forward from the rows' direction at the
 zero pose, a closed form of R_FL read on the host (``kernel_layout``): the
 JAX layout wherever the rows run along sat v, where it agrees with the JAX
 package, and the unswapped one where they run along sat u.  A batch whose
-rigs disagree raises; ``Localizer.predict`` serves such rigs in separate
-batches.
+rigs disagree raises on the banded path; ``Localizer.predict`` serves such
+rigs in separate batches.
 
 ``state_dict`` keys follow the reference: ``SatFeatureNet.*``,
 ``GrdFeatureNet.*``, ``damping``.  ``check_supported`` refuses every option
@@ -44,7 +52,7 @@ import torch
 
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import ford as fgeom
-from highlyaccurate_tpu_torch.models.lm_s2gp import BandedS2GPBase, _level_hw
+from highlyaccurate_tpu_torch.models.lm_s2gp import S2GPBase, _level_hw
 from highlyaccurate_tpu_torch.solver.updates import LMConfig
 
 
@@ -60,18 +68,13 @@ def check_supported(cfg: Config):
         (cfg.dropout > 0, "dropout > 0"),
         (bool(cfg.level_first), "level_first"),
         (cfg.proj != "geo", f"proj={cfg.proj!r}"),
-        (not cfg.use_fused_moments, "use_fused_moments=0"),
-        (not cfg.use_implicit_lm, "use_implicit_lm=0"),
-        (not cfg.use_banded_warp, "use_banded_warp=0"),
-        (cfg.compute_dtype != "float32",
-         f"compute_dtype={cfg.compute_dtype!r}"),
     ]
     for bad, name in refused:
         if bad:
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch for "
                 "Ford yet (it carries LM_S2GP_Ford geo LM evaluation and "
-                "training on the banded sampler)")
+                "training)")
 
 
 def ford_rays(cfg: Config):
@@ -110,7 +113,7 @@ def kernel_layout(R_FL) -> bool:
     return bool(swap[0])
 
 
-class LMS2GPFord(BandedS2GPBase):
+class LMS2GPFord(S2GPBase):
     """Ford-AV model, LM_S2GP_Ford."""
 
     def __init__(self, cfg: Config, device=None):
@@ -123,13 +126,26 @@ class LMS2GPFord(BandedS2GPBase):
                           use_hessian=bool(cfg.use_hessian), reinit=True),
             (1, 3), ford_rays(cfg), device)
 
-    def _line_uv(self, pose, slot: int, A: int, geo: tuple):
+    def _uv_jac(self, pose, points, A: int, geo: tuple, jac: bool = True):
         cfg = self.cfg
-        R_FL, T_FL, side_m, swap = geo
-        uv01, duv01 = fgeom.ford_uv_jac(
-            pose, R_FL, T_FL, getattr(self, f"rows01_{slot}"), side_m, A,
-            cfg.rotation_range, cfg.shift_range_lat, cfg.shift_range_lon)
-        return uv01, duv01, swap
+        R_FL, T_FL, side_m, _ = geo
+        return fgeom.ford_uv_jac(pose, R_FL, T_FL, points, side_m, A,
+                                 cfg.rotation_range, cfg.shift_range_lat,
+                                 cfg.shift_range_lon, require_jac=jac)
+
+    def _swap(self, geo: tuple) -> bool:
+        return geo[3]
+
+    def _geo(self, R_FL, T_FL, satmap_sidelength_meters,
+             banded: bool = True):
+        """The per-call geometry of ``_uv_jac``: the rig on the model's
+        device, the patch side, and the kernel layout of a ``banded``
+        round (read from R_FL on the host; the gather sampler takes any mix
+        of rigs)."""
+        swap = (kernel_layout(R_FL) if banded and self.cfg.use_banded_warp
+                else None)
+        R_FL, T_FL = (t.to(self.device, torch.float32) for t in (R_FL, T_FL))
+        return (R_FL, T_FL, satmap_sidelength_meters, swap)
 
     def forward(self, sat_map, grd_img, satmap_sidelength_meters, R_FL, T_FL,
                 mode: str = "test", init_pose: Optional[torch.Tensor] = None,
@@ -140,8 +156,8 @@ class LMS2GPFord(BandedS2GPBase):
         sat_map [B, A, A, 3], grd_img [B, H, W, 3] float32 on the model's
         device; R_FL [B, 3, 3] and T_FL [B, 3] (camera -> body) on the host
         or on that device (on the host they spare ``kernel_layout`` a read
-        from the device; a batch of disagreeing layouts raises
-        ``ValueError``); satmap_sidelength_meters the satellite patch's side
+        from the device; on the banded path a batch of disagreeing layouts
+        raises ``ValueError``); satmap_sidelength_meters the satellite patch's side
         (a scalar or a
         per-sample [B] tensor); init_pose [B, 3] normalized warm start
         (default zero); generator: the ``torch.Generator`` (on the model's
@@ -154,9 +170,7 @@ class LMS2GPFord(BandedS2GPBase):
         longitudinal, heading)), differentiable with respect to the
         parameters.
         """
-        swap = kernel_layout(R_FL)
-        R_FL, T_FL = (t.to(self.device, torch.float32) for t in (R_FL, T_FL))
-        geo = (R_FL, T_FL, satmap_sidelength_meters, swap)
+        geo = self._geo(R_FL, T_FL, satmap_sidelength_meters)
         traj = self._trajectory(sat_map, grd_img, mode, init_pose, gt_pose,
                                 generator, geo)
         # Ford: u is lateral, v longitudinal
@@ -164,3 +178,14 @@ class LMS2GPFord(BandedS2GPBase):
             gt_pose[:, i].float() for i in range(3))
         return self._outputs(mode, traj[..., 0], traj[..., 1], traj[..., 2],
                              *gt)
+
+    def project_at_pose(self, sat_map, grd_img, satmap_sidelength_meters,
+                        R_FL, T_FL, pred_pose, gt_pose):
+        """Per-level feature maps for ``--visualize`` PCA dumps (port of JAX
+        ``ford.py:393``): per level (sat_feat, grd_feat, proj_at_pred,
+        proj_at_gt), the projections through the gather sampler at every
+        ground pixel of the Ford chain, float32, zero where the ray misses
+        the ground.  Inputs as ``forward``'s; poses [B, 3] normalized."""
+        geo = self._geo(R_FL, T_FL, satmap_sidelength_meters, banded=False)
+        return self._project_at_pose(sat_map, grd_img, (pred_pose, gt_pose),
+                                     geo)

@@ -1,31 +1,43 @@
 """LM_G2SP evaluation and training (port of
-``highlyaccurate_tpu/models/lm_g2sp.py:44-88, 112-162, 206-262, 402-482``).
+``highlyaccurate_tpu/models/lm_g2sp.py:44-162, 206-293, 402-482``).
 
 Two VGGUnet branches give the satellite and ground feature pyramids; then
 N_iters x levels solver rounds refine the pose, iteration-major.  G2SP
 projects the *ground* features into the satellite grid: each satellite
 column j >= j0 (``g2sp_inview_col_start``; the columns west of it never see
 the camera) is one line, and its samples u are the satellite rows.  Each
-round runs ``g2sp_P`` on the line's first two ground points, packs the
-projective-line coefficients (``pack_projline_coefs``), samples the ground
-map with K4 (out, dx, dy [B, V, W, C] in line order: V satellite columns,
-W = A satellite rows), takes the per-pixel d(uv)/d(pose) from
-``g2sp_uv_jac`` and solves ``lm_update_implicit_pixel`` against the
-satellite features of those columns (residual grd_proj - sat, no feature
-normalization, no re-init, damping used raw).  Evaluation samples a bf16
-copy of each ground map made once per forward (a no-op under bf16
-features, ``compute_dtype="bfloat16"``); with ``g2sp_pixel_moments``
-it runs K6 instead of K4, which contracts the samples with the target into
-five moments per pixel, and solves ``lm_update_pixel_moments`` (JAX
-``lm_g2sp.py:235-255``).  Training keeps K4 whatever that flag says: it
-goes through the differentiable sampler (K4 with dxy forward, K5
-backward), whose bf16 cast sits inside the autograd function, and
-``loss_func`` method 0 scores the trajectory.
+slot takes one of two samplers, chosen per slot as JAX chooses per level
+(``level_round``, :244-293):
 
-The samples stay in line order; the satellite target is passed as a
-transposed view of the same columns, made once per level per forward
-(outside the rounds), so nothing is copied to sat-grid order: K6 takes the
-view's strides.
+* the projective-line kernels, where the banded path is on
+  (``use_banded_warp`` and ``banded_bf16_map``) and ``projline_supported``
+  takes the slot's ground map: each round runs ``g2sp_P`` on the line's
+  first two ground points, packs the projective-line coefficients
+  (``pack_projline_coefs``), samples the ground map with K4 (out, dx, dy
+  [B, V, W, C] in line order: V satellite columns, W = A satellite rows),
+  takes the per-pixel d(uv)/d(pose) from ``g2sp_uv_jac`` and solves
+  ``lm_update_implicit_pixel`` against the satellite features of those
+  columns (residual grd_proj - sat, no feature normalization, no re-init,
+  damping used raw).  Evaluation samples a bf16 copy of each ground map
+  made once per forward (a no-op under bf16 features,
+  ``compute_dtype="bfloat16"``); with ``g2sp_pixel_moments`` it runs K6
+  instead of K4, which contracts the samples with the target into five
+  moments per pixel, and solves ``lm_update_pixel_moments``.  Training
+  keeps K4 whatever that flag says: it goes through the differentiable
+  sampler (K4 with dxy forward, K5 backward), whose bf16 cast sits inside
+  the autograd function;
+* the gather sampler (``ops/grid_sample.py``) everywhere else, on the
+  ground map in its own dtype: ``g2sp_uv_jac`` at the same points, then
+  ``grid_sample_derivs`` and ``lm_update_implicit_pixel``, or with
+  ``use_implicit_lm=0`` the whole satellite grid (no column restriction,
+  as in JAX ``_project_grd_to_map``) through ``grid_sample`` with the
+  Jacobian and ``lm_update`` without normalization.  A 32-row ground
+  input, whose coarse map has 4 rows, mixes the two within one forward.
+
+Training scores the trajectory with ``loss_func`` method 0.  The samples
+stay in line order; the satellite target is passed as a transposed view of
+the same columns, made once per level per forward (outside the rounds), so
+nothing is copied to sat-grid order: K6 takes the view's strides.
 
 ``check_supported`` refuses every option this port does not carry for G2SP
 with ``NotImplementedError``; ``loss_method`` other than 0 raises
@@ -45,12 +57,14 @@ from highlyaccurate_tpu_torch.geometry import kitti as geom
 from highlyaccurate_tpu_torch.losses.losses import loss_func
 from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw, feature_dtype
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
+from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
+                                                      grid_sample_derivs)
 from highlyaccurate_tpu_torch.ops.projline import (pack_projline_coefs,
                                                    projline_pixmom,
                                                    projline_sample,
                                                    projline_sample_forward,
                                                    projline_supported)
-from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
+from highlyaccurate_tpu_torch.solver.updates import (LMConfig, lm_update,
                                                      lm_update_implicit_pixel,
                                                      lm_update_pixel_moments)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
@@ -66,8 +80,6 @@ def check_supported(cfg: Config):
         (cfg.proj != "geo", f"proj={cfg.proj!r}"),
         (cfg.Optimizer != "LM", f"Optimizer={cfg.Optimizer!r}"),
         (bool(cfg.using_weight), "using_weight"),
-        (not cfg.banded_bf16_map, "banded_bf16_map=0"),
-        (not cfg.use_banded_warp, "use_banded_warp=0"),
         (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
     ]
     for bad, name in refused:
@@ -75,16 +87,18 @@ def check_supported(cfg: Config):
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch for "
                 "G2SP yet (it carries KITTI G2SP geo LM evaluation and "
-                "training on the projective-line sampler)")
-    for slot in LEVEL_SLOTS[cfg.level]:
-        Hg, Wg = _level_hw(cfg, slot)
-        if not projline_supported(Hg, Wg, SLOT_CHANNELS[slot]):
-            raise NotImplementedError(
-                f"direction='G2SP' at level={cfg.level}: the "
-                f"{Hg}x{Wg}x{SLOT_CHANNELS[slot]} "
-                f"ground map of slot {slot} needs the gather sampler "
-                "(ops/grid_sample.py), which highlyaccurate_tpu_torch does "
-                "not carry yet")
+                "training)")
+
+
+def projline_slots(cfg: Config) -> dict:
+    """Per slot of ``cfg.level``, whether its rounds run the
+    projective-line kernels (else the gather sampler): the banded path is
+    on and ``projline_supported`` takes the slot's ground map (JAX
+    ``lm_g2sp.py:230-249``)."""
+    banded = bool(cfg.use_banded_warp) and bool(cfg.banded_bf16_map)
+    return {slot: banded and projline_supported(
+        *_level_hw(cfg, slot), SLOT_CHANNELS[slot])
+        for slot in LEVEL_SLOTS[cfg.level]}
 
 
 class LMG2SP(nn.Module):
@@ -108,10 +122,12 @@ class LMG2SP(nn.Module):
         self.lm_cfg = LMConfig(
             active_dims=(0, 1, 2), train_damping=bool(cfg.train_damping),
             damping=cfg.damping, use_hessian=False, reinit=False,
-            raw_damping=True)
+            raw_damping=True, normalize=False)
+        self._projline = projline_slots(cfg)
         # per slot: the first satellite column j0 and the ground points of
         # the kept columns in line order [V, A, 4]; rows 0 and 1 fix each
-        # line (its points are affine in the row index)
+        # line (its points are affine in the row index); with
+        # use_implicit_lm=0 a gather slot's whole grid [A, A, 4]
         self._col_start = {}
         for slot in self._slots:
             A = cfg.sat_size >> (3 - slot)
@@ -128,6 +144,9 @@ class LMG2SP(nn.Module):
                 np.ascontiguousarray(xyz1[0])), persistent=False)
             self.register_buffer(f"dx_{slot}", torch.from_numpy(
                 np.ascontiguousarray(xyz1[1] - xyz1[0])), persistent=False)
+            if not (self._projline[slot] or cfg.use_implicit_lm):
+                self.register_buffer(f"grid_{slot}", torch.from_numpy(
+                    geom.warp_sat2real(A)), persistent=False)
         self.to(dev)
         self.eval()
 
@@ -142,23 +161,38 @@ class LMG2SP(nn.Module):
 
     def corr(self, *args, **kwargs):
         raise NotImplementedError(
-            "the corr head (dense correlation, soft_margin_triplet) needs "
-            "the gather projection, which highlyaccurate_tpu_torch does not "
-            "carry yet")
+            "the corr head (dense correlation, soft_margin_triplet) is not "
+            "supported by highlyaccurate_tpu_torch yet")
 
     def _solver_round(self, pose, slot: int, grd_map, target, camera_k,
                       train: bool = False):
-        """One (iteration, level) round on the projective-line sampler.
+        """One (iteration, level) round on the slot's sampler.
 
-        grd_map [B, Hg, Wg, C] ground features (bf16 in evaluation, float32
-        in training); target [B, V, A, C] the satellite features of the
-        kept columns in line order (a view); camera_k [B, 3, 3] raw K.
+        grd_map [B, Hg, Wg, C] ground features (bf16 in a projective-line
+        evaluation, else in their own dtype); target the satellite
+        features in float32: of the kept columns in line order [B, V, A, C]
+        (a view), or on a ``use_implicit_lm=0`` gather slot the whole grid
+        [B, A, A, C]; camera_k [B, 3, 3] raw K.
         """
         cfg = self.cfg
         Hg, Wg = grd_map.shape[1:3]
         A = target.shape[2]
         ranges = (cfg.rotation_range, cfg.shift_range_lat,
                   cfg.shift_range_lon)
+        if not self._projline[slot]:
+            if not cfg.use_implicit_lm:
+                uv, duv, _ = geom.g2sp_uv_jac(
+                    pose, getattr(self, f"grid_{slot}"), camera_k, Hg, Wg,
+                    cfg.grd_h, cfg.grd_w, *ranges)        # [B, A, A, ...]
+                g_proj, jac = grid_sample(grd_map, uv, duv)
+                return lm_update(pose, g_proj, target, jac, self.damping,
+                                 self.lm_cfg, None)
+            uv, duv, _ = geom.g2sp_uv_jac(
+                pose, getattr(self, f"lines_{slot}"), camera_k, Hg, Wg,
+                cfg.grd_h, cfg.grd_w, *ranges)            # [B, V, A, ...]
+            out, dx, dy = grid_sample_derivs(grd_map, uv)
+            return lm_update_implicit_pixel(pose, out, dx, dy, target, duv,
+                                            self.damping, self.lm_cfg)
         P = geom.g2sp_P(pose, camera_k, Hg, Wg, cfg.grd_h, cfg.grd_w,
                         *ranges)                          # [B, 3, 4]
 
@@ -189,13 +223,16 @@ class LMG2SP(nn.Module):
         cfg = self.cfg
         maps, targets = [], []
         for lvl, slot in enumerate(self._slots):
-            # constant across rounds: the eval map cast and the targets,
-            # read in float32 (a no-op unless the features are bf16)
-            maps.append(grd_feats[lvl] if train
-                        else grd_feats[lvl].to(torch.bfloat16))
+            # constant across rounds: the projective-line eval map cast and
+            # the targets, read in float32 (a no-op unless the features are
+            # bf16)
+            projline = self._projline[slot]
+            maps.append(grd_feats[lvl].to(torch.bfloat16)
+                        if projline and not train else grd_feats[lvl])
+            sat = sat_feats[lvl].to(torch.float32)
             j0 = self._col_start[slot]
-            targets.append(sat_feats[lvl].to(torch.float32)[:, :, j0:]
-                           .transpose(1, 2))
+            targets.append(sat[:, :, j0:].transpose(1, 2)
+                           if projline or cfg.use_implicit_lm else sat)
         pose, traj = pose0, []
         for _ in range(cfg.N_iters):
             for lvl, slot in enumerate(self._slots):

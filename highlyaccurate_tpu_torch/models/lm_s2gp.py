@@ -1,27 +1,37 @@
 """LM_S2GP evaluation and training (port of
-``highlyaccurate_tpu/models/lm_s2gp.py:54-143, 146-186, 306-394, 666-855``),
-and the base it shares with the Ford model (``models/ford.py``).
+``highlyaccurate_tpu/models/lm_s2gp.py:54-143, 146-186, 233-304,
+306-470, 559-577, 666-855``), and the base it shares with the Ford model
+(``models/ford.py``).
 
 Two VGGUnet branches give the satellite and ground feature pyramids; then
-N_iters x levels solver rounds refine the pose, iteration-major.  Each round
-runs ``s2gp_uv_jac`` at ground columns u = 0, 1 of each kept row (the row's
-satellite line is affine in u, so two points fix it), then one of two
-branches of the JAX package:
+N_iters x levels solver rounds refine the pose, iteration-major.  Only the
+bottom half of the ground rows enters the solver (the sky crop).  Each
+round takes one of the JAX package's branches (``S2GPBase._solver_round``):
 
-* evaluation (fused-eval): ``banded_project`` with target rows runs K1
-  (``ops/banded_warp.py:banded_moments``) -> per-row moments ->
-  ``lm_update_from_moments``;
-* training (banded implicit): ``banded_project`` without them runs the
-  differentiable sampler K2 / K3 (``banded_sample``) -> out, dx, dy ->
-  ``lm_update_implicit``; ``loss_func`` method 0 scores the trajectory.
+* banded (``use_banded_warp``, the default): ``s2gp_uv_jac`` at ground
+  columns u = 0, 1 of each kept row (the row's satellite line is affine in
+  u, so two points fix it), then ``banded_project``:
+  - evaluation with ``use_fused_moments`` (the default): K1
+    (``ops/banded_warp.py:banded_moments``) -> per-row moments ->
+    ``lm_update_from_moments``;
+  - training, or evaluation with ``use_fused_moments=0``: the
+    differentiable sampler K2 / K3 (``banded_sample``) -> out, dx, dy ->
+    ``lm_update_implicit``;
+  - ``use_implicit_lm=0``: K2's samples with the row-affine Jacobian
+    materialized -> ``lm_update``;
+* gather (``use_banded_warp=0``, the faithful default of ``--test 1
+  --import_pth``): ``s2gp_uv_jac`` at every pixel of the kept rows, the
+  gather sampler (``ops/grid_sample.py``) on the features in their own
+  dtype, then ``lm_update_implicit_pixel_norm`` or, with
+  ``use_implicit_lm=0``, ``lm_update`` on the materialized Jacobian.
 
-Only the bottom half of the ground rows is sampled (the sky crop).  The
-satellite map goes to the kernels as a transposed view (kernel y = sat u,
-kernel x = sat v).  Evaluation casts it to the map dtype once per forward,
-since it does not change across rounds; training casts it inside the
-autograd function, so its gradient stays float32.  With
-``compute_dtype="bfloat16"`` both branches compute in bf16 (``VGGUnet``),
-the map is bf16 as ``banded_bf16_map`` makes it, and the target rows are
+Training scores the trajectory with ``loss_func`` method 0.  The
+satellite map goes to the banded kernels as a transposed view (kernel y =
+sat u, kernel x = sat v).  K1 reads a map cast once per forward to the map
+dtype, since it does not change across rounds; K2 casts inside its
+autograd function, so the map gradient stays float32.  With
+``compute_dtype="bfloat16"`` the features are bf16 (``VGGUnet``), the
+banded map is bf16 as ``banded_bf16_map`` makes it, and the target rows are
 read in float32, as in JAX.
 
 ``check_supported`` refuses every option this port does not carry yet with
@@ -43,12 +53,12 @@ from highlyaccurate_tpu_torch.losses.losses import loss_func
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.banded_warp import (banded_moments,
                                                       banded_sample,
-                                                      banded_sample_forward,
-                                                      default_rb,
-                                                      pack_row_coefs)
-from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
-                                                     lm_update_from_moments,
-                                                     lm_update_implicit)
+                                                      default_rb)
+from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
+                                                      grid_sample_derivs)
+from highlyaccurate_tpu_torch.solver.updates import (
+    LMConfig, lm_update, lm_update_from_moments, lm_update_implicit,
+    lm_update_implicit_pixel_norm)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
@@ -64,16 +74,12 @@ def check_supported(cfg: Config):
         (cfg.dropout > 0, "dropout > 0"),
         (bool(cfg.level_first), "level_first"),
         (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
-        (not cfg.use_fused_moments, "use_fused_moments=0"),
-        (not cfg.use_banded_warp, "use_banded_warp=0"),
-        (not cfg.use_implicit_lm, "use_implicit_lm=0"),
     ]
     for bad, name in refused:
         if bad:
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch yet "
-                "(this slice carries KITTI S2GP geo LM evaluation and "
-                "training)")
+                "(it carries KITTI S2GP geo LM evaluation and training)")
 
 
 def feature_dtype(cfg: Config) -> torch.dtype:
@@ -167,32 +173,37 @@ def level_slots(cfg: Config):
     return LEVEL_SLOTS[cfg.level]
 
 
-class BandedS2GPBase(nn.Module):
+class S2GPBase(nn.Module):
     """What the KITTI S2GP and Ford models share: two VGGUnet branches, the
-    per-row-affine solver rounds on K1 (evaluation) or K2 / K3 (training)
-    over the bottom half of the ground rows, and the forward's mode
-    handling.  A subclass gives the per-slot rays and ``_line_uv``, the
-    satellite uv of each kept row's u = 0, 1 pixels, their d(uv)/d(pose)
-    and the kernel layout (``banded_project``'s ``swap``)."""
+    solver rounds over the bottom half of the ground rows on the banded
+    kernels or the gather sampler, the forward's mode handling and
+    ``project_at_pose``.  A subclass gives the per-slot rays, ``_uv_jac``
+    (the satellite uv of ground points and their d(uv)/d(pose)) and
+    ``_swap``, the kernel layout (``banded_project``'s ``swap``)."""
 
     def _init_common(self, cfg: Config, lm_cfg: LMConfig, damping_shape,
                      rays, device):
         """The networks, the damping, the solver settings and, per slot of
-        ``cfg.level``, the buffers ``rows01_{slot}`` (the u = 0, 1 points
-        [V, 2, 3] of the kept rows) and ``mask_{slot}`` from ``rays``, the
-        per-slot (xyz [H, W, 3], mask [H, W], ...)."""
+        ``cfg.level``, from ``rays`` (the per-slot (xyz [H, W, 3], mask
+        [H, W], ...)) the buffers of the kept rows: ``mask_{slot}``, and
+        ``rows01_{slot}`` (their u = 0, 1 points [V, 2, 3]) for the banded
+        path or ``xyz_{slot}`` (every point [V, W, 3]) for the gather
+        path."""
         self.cfg = cfg
         dev = resolve_device(device)
         self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
         self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
         self.damping = nn.Parameter(torch.zeros(damping_shape))
         self._slots = level_slots(cfg)
+        self._rays = rays
         self.lm_cfg = lm_cfg
         for slot in self._slots:
             xyz, mask = rays[slot][:2]
             half = xyz.shape[0] // 2
-            self.register_buffer(f"rows01_{slot}", torch.from_numpy(
-                np.ascontiguousarray(xyz[half:, :2])), persistent=False)
+            name, points = (("rows01", xyz[half:, :2])
+                            if cfg.use_banded_warp else ("xyz", xyz[half:]))
+            self.register_buffer(f"{name}_{slot}", torch.from_numpy(
+                np.ascontiguousarray(points)), persistent=False)
             self.register_buffer(f"mask_{slot}", torch.from_numpy(
                 np.ascontiguousarray(mask[half:])), persistent=False)
         self.to(dev)
@@ -207,42 +218,91 @@ class BandedS2GPBase(nn.Module):
         grd_feats, grd_confs = self.GrdFeatureNet(grd_img)
         return sat_feats, sat_confs, grd_feats, grd_confs
 
+    def _uv_jac(self, pose, points, A: int, geo: tuple, jac: bool = True):
+        """Satellite uv [B, ..., 2] of ground points [..., 3] at ``pose``
+        and, with ``jac``, their d(uv)/d(pose) [B, ..., 2, 3] (else
+        None)."""
+        raise NotImplementedError
+
+    def _swap(self, geo: tuple) -> bool:
+        """The kernel layout of the batch (``banded_project``'s ``swap``)."""
+        raise NotImplementedError
+
     def _line_uv(self, pose, slot: int, A: int, geo: tuple):
         """(uv01 [B, V, 2, 2], duv01 [B, V, 2, 2, 3], swap) of the kept
         rows."""
-        raise NotImplementedError
+        uv01, duv01 = self._uv_jac(pose, getattr(self, f"rows01_{slot}"), A,
+                                   geo)
+        return uv01, duv01, self._swap(geo)
+
+    def _fused_eval(self, train: bool) -> bool:
+        """Whether an evaluation round runs K1 (JAX: the banded implicit
+        branch with ``fused_eval``)."""
+        cfg = self.cfg
+        return (not train and bool(cfg.use_banded_warp)
+                and bool(cfg.use_implicit_lm) and bool(cfg.use_fused_moments))
 
     def _solver_round(self, pose, slot: int, sat_feat, grd_rows, generator,
                       train: bool = False, geo: tuple = ()):
-        """One (iteration, level) round: the fused-eval branch, or with
-        ``train`` the differentiable banded implicit branch.  ``geo`` holds
-        the model's per-call geometry inputs for ``_line_uv``."""
+        """One (iteration, level) round, the branch the JAX package takes
+        for this config (module docstring).  sat_feat [B, A, A, C] (the map
+        dtype for K1, else the features' own dtype); grd_rows [B, V, W, C]
+        the kept target rows in float32; ``geo`` holds the model's per-call
+        geometry inputs for ``_uv_jac``."""
         cfg = self.cfg
         mask = getattr(self, f"mask_{slot}")
-        uv01, duv01, swap = self._line_uv(pose, slot, sat_feat.shape[1], geo)
-        if train:
-            out, dx, dy, P0, dP = banded_project(cfg, sat_feat, uv01, duv01,
-                                                 mask, swap=swap)
-            return lm_update_implicit(pose, out, dx, dy, grd_rows, mask, P0,
+        A = sat_feat.shape[1]
+        if not cfg.use_banded_warp:
+            uv, duv = self._uv_jac(pose, getattr(self, f"xyz_{slot}"), A,
+                                   geo)
+            if cfg.use_implicit_lm:
+                out, dx, dy = grid_sample_derivs(sat_feat, uv)
+                return lm_update_implicit_pixel_norm(
+                    pose, out, dx, dy, grd_rows, mask[None], duv,
+                    self.damping, self.lm_cfg, generator)
+            out, jac = grid_sample(sat_feat, uv, duv)
+            return self._lm_update(pose, out, jac, grd_rows, mask, generator)
+        uv01, duv01, swap = self._line_uv(pose, slot, A, geo)
+        if self._fused_eval(train):
+            M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01, mask,
+                                         grd_rows, swap=swap)
+            return lm_update_from_moments(pose, M, P0s, dPs, self.damping,
+                                          self.lm_cfg, generator)
+        out, du, dv, P0, dP = banded_project(cfg, sat_feat, uv01, duv01,
+                                             mask, swap=swap)
+        if cfg.use_implicit_lm:
+            return lm_update_implicit(pose, out, du, dv, grd_rows, mask, P0,
                                       dP, self.damping, self.lm_cfg,
                                       generator)
-        M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01, mask,
-                                     grd_rows, swap=swap)
-        return lm_update_from_moments(pose, M, P0s, dPs, self.damping,
-                                      self.lm_cfg, generator)
+        # the row-affine Jacobian materialized: duv(v, u) = P0 + u * dP
+        u = torch.arange(mask.shape[1], dtype=torch.float32,
+                         device=mask.device)
+        duv = P0[:, :, None] + u[None, None, :, None, None] * dP[:, :, None]
+        jac = (du[..., None] * duv[:, :, :, None, 0, :]
+               + dv[..., None] * duv[:, :, :, None, 1, :])
+        return self._lm_update(pose, out, jac, grd_rows, mask, generator)
+
+    def _lm_update(self, pose, out, jac, grd_rows, mask, generator):
+        """``lm_update`` on samples, target rows and Jacobian under the ray
+        mask [V, W] (JAX: the projection masks all three)."""
+        m = mask[None, :, :, None]
+        return lm_update(pose, out * m, grd_rows * m, jac * m[..., None],
+                         self.damping, self.lm_cfg, generator)
 
     def _run_rounds(self, pose0, sat_feats, grd_feats, generator,
                     train: bool, geo: tuple = ()):
         """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]."""
         cfg = self.cfg
-        map_dtype = (torch.bfloat16 if bf16_map(cfg) and not train
-                     else torch.float32)
+        # constant across rounds: K1's map cast (the banded sampler casts
+        # inside its autograd function, the gather sampler reads the
+        # features in their own dtype) and the kept target rows, which the
+        # updates read in float32 (JAX's K1 wrapper casts them too)
+        map_dtype = (torch.bfloat16 if bf16_map(cfg)
+                     and self._fused_eval(train) else torch.float32)
         sats, grds = [], []
         for lvl in range(len(self._slots)):
-            # constant across rounds: the map cast and the kept target
-            # rows, which K1 and the moments read in float32 (JAX's K1
-            # wrapper casts them too)
-            sats.append(sat_feats[lvl].to(map_dtype))
+            sats.append(sat_feats[lvl] if not cfg.use_banded_warp
+                        else sat_feats[lvl].to(map_dtype))
             H = grd_feats[lvl].shape[1]
             grds.append(grd_feats[lvl][:, H // 2:].to(torch.float32)
                         .contiguous())
@@ -254,6 +314,24 @@ class BandedS2GPBase(nn.Module):
                 traj.append(pose)
         return torch.stack(traj, dim=1).reshape(pose0.shape[0], cfg.N_iters,
                                                 len(self._slots), 3)
+
+    @torch.no_grad()
+    def _project_at_pose(self, sat_map, grd_img, poses, geo: tuple = ()):
+        """Per level (sat_feat, grd_feat, projection at each of ``poses``):
+        the satellite features gathered at every ground pixel (all rows)
+        by ``grid_sample``, zero where the ray misses the ground (JAX
+        ``_project`` with ``with_jac=False``)."""
+        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        outs = []
+        for lvl, slot in enumerate(self._slots):
+            xyz, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(
+                self.device) for a in self._rays[slot][:2])
+            A = sat_feats[lvl].shape[1]
+            proj = [grid_sample(sat_feats[lvl], self._uv_jac(
+                pose.to(torch.float32), xyz, A, geo, jac=False)[0])[0]
+                * mask[None, :, :, None] for pose in poses]
+            outs.append((sat_feats[lvl], grd_feats[lvl], *proj))
+        return outs
 
     def _trajectory(self, sat_map, grd_img, mode, init_pose, gt_pose,
                     generator, geo=()):
@@ -294,7 +372,7 @@ class BandedS2GPBase(nn.Module):
                          cfg.coe_shift_lon, coe_heading)
 
 
-class LMS2GP(BandedS2GPBase):
+class LMS2GP(S2GPBase):
     """Flagship KITTI model, direction S2GP.
 
     ``state_dict`` keys follow the reference: ``SatFeatureNet.*``,
@@ -312,12 +390,16 @@ class LMS2GP(BandedS2GPBase):
             (1, 3) if cfg.rotation_range > 0 else (), precompute_rays(cfg),
             device)
 
-    def _line_uv(self, pose, slot: int, A: int, geo: tuple):
+    def _uv_jac(self, pose, points, A: int, geo: tuple, jac: bool = True):
         cfg = self.cfg
-        uv01, duv01 = geom.s2gp_uv_jac(
-            pose, getattr(self, f"rows01_{slot}"), A, cfg.rotation_range,
-            cfg.shift_range_lat, cfg.shift_range_lon)
-        return uv01, duv01, True
+        ranges = (cfg.rotation_range, cfg.shift_range_lat,
+                  cfg.shift_range_lon)
+        if jac:
+            return geom.s2gp_uv_jac(pose, points, A, *ranges)
+        return geom.s2gp_uv(pose, points, A, *ranges), None
+
+    def _swap(self, geo: tuple) -> bool:
+        return True
 
     def forward(self, sat_map, grd_img, mode: str = "test",
                 init_pose: Optional[torch.Tensor] = None, *,
@@ -346,7 +428,6 @@ class LMS2GP(BandedS2GPBase):
         return self._outputs(mode, traj[..., 1], traj[..., 0], traj[..., 2],
                              *gt)
 
-    @torch.no_grad()
     def project_at_pose(self, sat_map, grd_img, pred_pose, gt_pose):
         """Per-level feature maps for ``--visualize`` PCA dumps (port of JAX
         ``lm_s2gp.py:559``; the reference's in-forward visualization
@@ -356,33 +437,7 @@ class LMS2GP(BandedS2GPBase):
         [B, 3] normalized.  Returns per level (sat_feat [B, A', A', C],
         grd_feat [B, H', W', C], proj_at_pred, proj_at_gt [B, H', W', C]):
         the satellite features projected into every ground pixel at each
-        pose, float32, zero where the ray misses the ground.  JAX samples
-        with its gather sampler; here every ground row's line goes through
-        K2 (``banded_sample_forward``) on a float32 map, so rows that fail
-        the banded validity guard come out zero.
+        pose by the gather sampler, as in JAX, float32, zero where the ray
+        misses the ground.
         """
-        cfg = self.cfg
-        rays = precompute_rays(cfg)
-        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
-        outs = []
-        for lvl, slot in enumerate(self._slots):
-            xyz, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(
-                self.device) for a in rays[slot][:2])
-            sat_k = sat_feats[lvl].to(torch.float32).transpose(1, 2)
-            A, W = sat_k.shape[1], mask.shape[1]
-
-            def project(pose):
-                uv01, _ = geom.s2gp_uv_jac(
-                    pose.to(torch.float32), xyz[:, :2], A,
-                    cfg.rotation_range, cfg.shift_range_lat,
-                    cfg.shift_range_lon)
-                uvk = uv01.flip(-1)                   # kernel (x, y) order
-                coefs = pack_row_coefs(uvk[:, :, 0], uvk[:, :, 1], A,
-                                       default_rb(A), W)
-                out = banded_sample_forward(sat_k, coefs, W,
-                                            with_dxy=False)[0]
-                return out * mask[None, :, :, None]
-
-            outs.append((sat_feats[lvl], grd_feats[lvl], project(pred_pose),
-                         project(gt_pose)))
-        return outs
+        return self._project_at_pose(sat_map, grd_img, (pred_pose, gt_pose))

@@ -194,18 +194,25 @@ def bilinear_transpose(x0, y0, fx, fy, m, g_o, g_dx, g_dy, AY: int,
     return grad.view(B, AY, AX, C)
 
 
-def moment_sums(s, dx, dy, grd, mask):
-    """The LM moments of line samples, the contraction K1 fuses: the nine
-    per-pixel channel dots of (s, dx, dy) and the target rows ``grd``
-    (``MOM_IDX`` order) under the ray mask [V, W], each summed over u with
-    weights 1, u, u^2.  Returns [B, V, 3, 9] float32."""
-    f32 = torch.float32
-    g = grd.to(f32)
-    cols = torch.stack([
+def channel_moments(s, dx, dy, grd):
+    """The nine per-pixel channel dots of float32 samples (s, dx, dy)
+    [..., C] and the target ``grd`` [..., C] (cast to float32), in
+    ``MOM_IDX`` order: [..., 9]."""
+    g = grd.to(torch.float32)
+    return torch.stack([
         (s * s).sum(-1), (g * g).sum(-1),
         (dx * dx).sum(-1), (dx * dy).sum(-1), (dy * dy).sum(-1),
         (dx * s).sum(-1), (dy * s).sum(-1),
-        (dx * g).sum(-1), (dy * g).sum(-1)], dim=-1)      # [B, V, W, 9]
+        (dx * g).sum(-1), (dy * g).sum(-1)], dim=-1)
+
+
+def moment_sums(s, dx, dy, grd, mask):
+    """The LM moments of line samples, the contraction K1 fuses: the nine
+    per-pixel channel dots of (s, dx, dy) and the target rows ``grd``
+    (``channel_moments``) under the ray mask [V, W], each summed over u
+    with weights 1, u, u^2.  Returns [B, V, 3, 9] float32."""
+    f32 = torch.float32
+    cols = channel_moments(s, dx, dy, grd)                # [B, V, W, 9]
     cols = cols * mask.to(f32)[None, :, :, None]
     u = torch.arange(mask.shape[1], dtype=f32, device=cols.device)
     wts = torch.stack([torch.ones_like(u), u, u * u])     # [3, W]

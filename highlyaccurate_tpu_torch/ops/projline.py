@@ -46,8 +46,9 @@ _FULLMAP_VMEM_BUDGET = 9 * 2 ** 20  # the TPU kernel's bf16 map residency
 
 def projline_supported(AY: int, AX: int, C: int) -> bool:
     """Whether the JAX package's projective-line sampler serves this ground
-    map shape (8-row chunks, bf16 map resident in VMEM).  Elsewhere it takes
-    the gather sampler, which this port does not carry yet."""
+    map shape (8-row chunks, bf16 map resident in VMEM).  Elsewhere the
+    level takes the gather sampler, in JAX and here (``models/lm_g2sp.py``
+    ``projline_slots``)."""
     return AY % _SHEAR_CHUNK == 0 and AY * AX * C * 2 <= _FULLMAP_VMEM_BUDGET
 
 

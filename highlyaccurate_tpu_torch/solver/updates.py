@@ -1,8 +1,10 @@
 """LM pose updates (port of ``highlyaccurate_tpu/solver/updates.py:29-43,
-79-92, 156-248, 251-393, 441-516``): the S2GP and Ford update from K1's
-fused moments (evaluation) and from K2's line samples (training), and the
+45-154, 156-248, 251-516, 519-532``): the S2GP and Ford update from K1's
+fused moments (evaluation) and from K2's line samples (training), the
 G2SP per-pixel update from K4's samples (both) or K6's fused moments
-(evaluation).
+(evaluation), and the gather sampler's updates: ``lm_update`` on a
+materialized Jacobian (``use_implicit_lm=0``, every family) and the S2GP /
+Ford per-pixel ``lm_update_implicit_pixel_norm``.
 
 pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
 solve runs in float32 whatever the feature dtype.  The contractions are
@@ -18,7 +20,9 @@ from typing import NamedTuple
 
 import torch
 
-from highlyaccurate_tpu_torch.ops.banded_warp import MOM_IDX, moment_sums
+from highlyaccurate_tpu_torch.ops.banded_warp import (MOM_IDX,
+                                                      channel_moments,
+                                                      moment_sums)
 from highlyaccurate_tpu_torch.ops.projline import PIXMOM_IDX, pixel_moments
 
 
@@ -28,14 +32,16 @@ REINIT_RANGE = 2.5
 
 class LMConfig(NamedTuple):
     """Static solver knobs (subset of Config).  G2SP sets ``reinit=False``
-    (no out-of-range re-init) and ``raw_damping=True`` (a trained damping
-    is used as it is, reference models_kitti.py:356-359)."""
+    (no out-of-range re-init), ``raw_damping=True`` (a trained damping
+    is used as it is, reference models_kitti.py:356-359) and
+    ``normalize=False`` (``lm_update`` without the feature norms)."""
     active_dims: tuple = (0, 1, 2)
     train_damping: bool = False
     damping: float = 0.1
     use_hessian: bool = False
     reinit: bool = True
     raw_damping: bool = False
+    normalize: bool = True
 
 
 def compute_damping(damping_param, cfg: LMConfig, n_active: int,
@@ -94,6 +100,48 @@ def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
             torch.where((sv > -lim) & (sv < lim), sv, rand[1]),
             new[:, 2]], dim=-1)
     return new
+
+
+def _safe_norm(x, floor: float):
+    """L2 norm over the last axis, floored, with a NaN-free backward at 0:
+    sqrt(max(sum_sq, floor^2)), whose clamp gates the sqrt's gradient."""
+    return torch.sqrt(torch.clamp_min((x * x).sum(-1), floor * floor))
+
+
+def lm_update(pose, sat_feat, grd_feat, jac, damping_param, cfg: LMConfig,
+              generator: torch.Generator):
+    """One damped Gauss-Newton (LM) update on a materialized Jacobian, the
+    ``use_implicit_lm=0`` update of every family (port of JAX
+    ``lm_update``, reference models_kitti.py:939-1041 for S2GP and Ford,
+    ``normalize=True``, and :333-379 for G2SP, ``normalize=False``).
+
+    sat_feat [B, H, W, C] the projected "moving" features, grd_feat
+    [B, H, W, C] the target, jac [B, H, W, C, 3] d(sat_feat)/d(pose).  The
+    residual is r = sat - grd over every (pixel, channel), unweighted (the
+    port refuses ``using_weight``).  With ``normalize``, both sides are
+    divided by their whole-map norms floored at 1e-6 (``_safe_norm``: an
+    all-masked projection gives a zero vector, whose norm's backward would
+    be 0/0).  H = J^T J and g = J^T r are written as sums of products, one
+    per pair of DoF, so no matrix product (and no TF32 mode) is involved.
+    """
+    f32 = torch.float32
+    B = pose.shape[0]
+    act = list(cfg.active_dims)
+    n = len(act)
+    J = jac[..., act].reshape(B, -1, n).to(f32)           # [B, D, n]
+    sat = sat_feat.reshape(B, -1).to(f32)
+    grd = grd_feat.reshape(B, -1).to(f32)
+    if cfg.normalize:
+        sat_norm = _safe_norm(sat, 1e-6)
+        sat = sat / sat_norm[:, None]
+        J = J / sat_norm[:, None, None]
+        grd = grd / _safe_norm(grd, 1e-6)[:, None]
+    r = sat - grd
+    cols = J.unbind(-1)
+    hess = torch.stack([torch.stack([(a * b).sum(1) for b in cols], -1)
+                        for a in cols], -2)               # [B, n, n]
+    g = torch.stack([(a * r).sum(1) for a in cols], -1)   # [B, n]
+    return _solve_and_reinit(pose, hess, g, damping_param, cfg, generator)
 
 
 def _pair(Pa, Da, Pb, Db, m0, m1, m2):
@@ -186,6 +234,45 @@ def _pixel_hessian(Du, Dv, sxx, sxy, syy):
                 * w[..., None, None]).sum((1, 2))
     return (outer(Du, Du, sxx) + outer(Du, Dv, sxy) + outer(Dv, Du, sxy)
             + outer(Dv, Dv, syy))
+
+
+def lm_update_implicit_pixel_norm(pose, out, dx, dy, grd, mask, duv,
+                                  damping_param, cfg: LMConfig,
+                                  generator: torch.Generator):
+    """The S2GP / Ford LM update from per-pixel implicit Jacobians, the
+    gather path's (port of JAX ``lm_update_implicit_pixel_norm`` with its
+    ``_implicit_moments``): ``lm_update`` on the Jacobian
+    J = dx * duv_u + dy * duv_v, which is never materialized.  The nine
+    per-pixel channel moments under the ray mask give H and g, with the
+    whole-map feature norms floored at 1e-6 and r = s/ns - g/ng.
+
+    out, dx, dy [B, H, W, C] sampled values and screen derivatives (masked
+    in bounds by the sampler); grd [B, H, W, C] the target, unmasked;
+    mask [1|B, H, W] the ray mask; duv [B, H, W, 2, 3].  Differentiable with
+    respect to every tensor argument.
+    """
+    f32 = torch.float32
+    m = mask.to(f32)[..., None]
+    mom = channel_moments(out.to(f32), dx.to(f32), dy.to(f32), grd) * m
+
+    def pix(name):
+        return mom[..., MOM_IDX[name]]                    # [B, H, W]
+
+    ns = torch.sqrt(torch.clamp_min(pix("ss").sum((1, 2)), 1e-12))  # [B]
+    ng = torch.sqrt(torch.clamp_min(pix("gg").sum((1, 2)), 1e-12))
+    Du = duv[..., 0, :].to(f32)                           # [B, H, W, 3]
+    Dv = duv[..., 1, :].to(f32)
+    hess = _pixel_hessian(Du, Dv, pix("sxx"), pix("sxy"), pix("syy")) \
+        / (ns * ns)[:, None, None]
+    ss = (ns[:, None, None] ** 2)
+    sg = (ns * ng)[:, None, None]
+    qx = pix("dxs") / ss - pix("dxg") / sg
+    qy = pix("dys") / ss - pix("dyg") / sg
+    g = ((Du * qx[..., None]).sum((1, 2))
+         + (Dv * qy[..., None]).sum((1, 2)))
+    act = list(cfg.active_dims)
+    return _solve_and_reinit(pose, hess[:, act][:, :, act], g[:, act],
+                             damping_param, cfg, generator)
 
 
 def lm_update_implicit_pixel(pose, out, dx, dy, target, duv, damping_param,

@@ -17,7 +17,10 @@ One step differentiates ``loss_func`` over the whole unrolled solver and
 applies Adam.  Parameters that receive no gradient (the confidence heads,
 and ``damping`` unless ``train_damping``) keep ``grad`` None, so Adam skips
 them; optax updates them with a zero gradient, which also leaves them as
-they are.
+they are.  ``freeze_backbones`` (the Ford ``--transformer`` restore) sets
+the two feature networks' gradients to zeros before Adam's step, as the
+JAX step zeroes them: Adam keeps their state, whose moments are zero after
+the restore, so it steps them by zero and the weights stay bit-equal.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ METRICS = ("loss_decrease", "shift_lat_decrease", "shift_lon_decrease",
 
 
 def make_train_step(model: torch.nn.Module, cfg: Config,
-                    ford_side_m=None):
+                    ford_side_m=None, freeze_backbones: bool = False):
     """S2GP (an ``LMS2GP``): ``step(state, sat, grd, gt_pose, generator)``;
     G2SP (an ``LMG2SP``): ``step(state, sat, grd, camera_k, gt_pose,
     generator)``; Ford (an ``LMS2GPFord``, with ``ford_side_m`` the
@@ -52,9 +55,13 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
     re-inits and ignores it; it keeps the JAX step's rng argument).  The
     model's parameters are updated in place.  metrics: the JAX step's
     names, as detached tensors on the device ("loss" scalar, the rest [L]).
+    ``freeze_backbones`` zeroes the feature networks' gradients before
+    each optimizer step (JAX ``train/step.py:139-143``).
     """
     g2sp = cfg.direction == "G2SP"
     ford = ford_side_m is not None
+    frozen = ([p for net in (model.SatFeatureNet, model.GrdFeatureNet)
+               for p in net.parameters()] if freeze_backbones else [])
 
     def step(state: TrainState, sat, grd, *rest):
         if ford:
@@ -71,6 +78,8 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
         opt.zero_grad(set_to_none=True)
         out = model(sat, grd, *args, mode="train", gt_pose=gt_pose, **fwd)
         out.loss.backward()
+        for p in frozen:
+            p.grad = torch.zeros_like(p)
         opt.step()
         metrics = {"loss": out.loss.detach()}
         metrics.update((k, getattr(out, k).detach()) for k in METRICS)
@@ -104,17 +113,23 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def make_eval_step(model: torch.nn.Module, cfg: Config):
+def make_eval_step(model: torch.nn.Module, cfg: Config, ford_side_m=None):
     """Inference: the final (shift_lat, shift_lon, theta), each [B].
 
     S2GP (an ``LMS2GP``): ``step(sat, grd, generator)``; G2SP (an
     ``LMG2SP``): ``step(sat, grd, camera_k, generator)`` (G2SP never
-    re-inits and ignores the generator).  The model holds its weights;
-    the step runs under ``torch.no_grad()``."""
+    re-inits and ignores the generator); Ford (an ``LMS2GPFord``, with
+    ``ford_side_m``): ``step(sat, grd, R_FL, T_FL, generator)``.  The model
+    holds its weights; the step runs under ``torch.no_grad()``."""
     g2sp = cfg.direction == "G2SP"
+    ford = ford_side_m is not None
 
     @torch.no_grad()
     def step(sat, grd, *rest):
+        if ford:
+            R_FL, T_FL, generator = rest
+            return model(sat, grd, ford_side_m, R_FL, T_FL, mode="test",
+                         generator=generator)
         if g2sp:
             camera_k, _ = rest
             return model(sat, grd, camera_k, mode="test")

@@ -21,11 +21,14 @@ re-init range.
   its norm within ``UPDATE_NORM_RTOL``, the Test1 predictions within
   ``TRAIN_EVAL_ATOL``;
 * ``--test 1`` on the port's own run reads ``model_1`` with bf16 features;
-  ``--test 1 --import_pth`` at the defaults and ``--pose_hypotheses 2``
-  raise ``NotImplementedError`` naming the option;
+  ``--test 1 --import_pth`` at its faithful defaults (the gather sampler,
+  the full G2SP grid, float32) agrees with the JAX CLI's within
+  ``EVAL_ATOL`` (S2GP and G2SP); ``--pose_hypotheses 2`` raises
+  ``NotImplementedError`` naming the option;
 * ``--visualize`` writes the trajectory and feature-PCA files, and
   ``project_at_pose`` equals the JAX model's maps within
-  ``PROJECT_ATOL``; ``--profile_dir`` writes a trace.
+  ``PROJECT_ATOL``, also at headings whose rows fail the banded validity
+  guard; ``--profile_dir`` writes a trace.
 """
 
 import glob
@@ -72,9 +75,8 @@ EVAL_ATOL = 5e-4
 UPDATE_REL_L2 = 0.25
 UPDATE_NORM_RTOL = 2e-2
 TRAIN_EVAL_ATOL = 0.5
-# project_at_pose: K2 on the per-row lines against the JAX gather sampler
-# at every pixel, both on float32 maps (measured 3.6e-7 against values up
-# to 3e-2).
+# project_at_pose: the gather sampler at every pixel in both packages, on
+# float32 maps (measured 3.6e-7 against values up to 3e-2).
 PROJECT_ATOL = 1e-5
 
 
@@ -215,11 +217,6 @@ def test_train_resume_matches_jax(tmp_path, monkeypatch):
 
 
 def test_refused_options_name_themselves(tmp_path):
-    pth = tmp_path / "model.pth"
-    torch.save({}, pth)
-    with pytest.raises(NotImplementedError, match="use_banded_warp=0"):
-        cli.main(["--test", "1", "--import_pth", str(pth), "--device", "cpu",
-                  "--save_root", str(tmp_path)] + S2GP)
     with pytest.raises(NotImplementedError, match="pose_hypotheses"):
         cli.main(["--test", "1", "--pose_hypotheses", "2", "--device", "cpu",
                   "--save_root", str(tmp_path)] + S2GP)
@@ -229,6 +226,37 @@ def test_refused_options_name_themselves(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--test", "1", "--save_root", str(tmp_path)] + S2GP)
+
+
+@pytest.mark.parametrize("family", ["S2GP", "G2SP"])
+def test_import_pth_faithful_matches_jax(tmp_path, monkeypatch, capsys,
+                                         family):
+    """``--test 1 --import_pth`` at its faithful defaults, which resolve to
+    the gather sampler, the full G2SP grid and float32 features in both
+    CLIs: the Test1 and Test2 predictions of one reference ``.pth``."""
+    geom = S2GP if family == "S2GP" else G2SP
+    params = _jax_params(geom, seed=9)
+    pth = tmp_path / "ref.pth"
+    torch.save(state_dict_from_jax(params), pth)
+    argv = ["--test", "1", "--import_pth", str(pth), "--synthetic", "2",
+            "--batch_size", "2", "--N_iters", "1"] + geom
+    cfg = config_from_args(cli.parse_args(argv))
+    assert (cfg.use_banded_warp, cfg.g2sp_restrict_grid,
+            cfg.compute_dtype) == (0, 0, "float32")
+    # the JAX CLI's init only gives the params template import_pth fills
+    monkeypatch.setattr(jcli, "init_model",
+                        lambda cfg, model: {"params": params})
+    jroot, troot = tmp_path / "jax", tmp_path / "torch"
+    jcli.main(argv + ["--save_root", str(jroot)])
+    cli.main(argv + ["--device", "cpu", "--save_root", str(troot)])
+    assert "defaults to the reference-faithful gather sampler" in \
+        capsys.readouterr().out
+    for split in ("Test1", "Test2"):
+        got = _preds(cfg.save_path(str(troot)), split)
+        want = _preds(cfg.save_path(str(jroot)), split)
+        _assert_in_range(want)
+        print(family, split, "max |port - JAX|:", np.abs(got - want).max(0))
+        np.testing.assert_allclose(got, want, rtol=0, atol=EVAL_ATOL)
 
 
 def test_import_pth_evaluates_on_banded_kernels(tmp_path):
@@ -266,13 +294,22 @@ def test_visualize_and_profile_write_files(tmp_path, monkeypatch):
         assert json.load(f)["traceEvents"]
 
 
-def test_project_at_pose_matches_jax():
+# (rotation_range, normalized heading of the predicted pose): the tiny
+# geometry's own range, and a heading of 54 deg, where the rows run steeper
+# than the banded validity guard takes (|slope| >= 0.95 from about 44 deg)
+PROJECT_CASES = {"default": (10.0, None), "steep_heading": (60.0, 0.9)}
+
+
+@pytest.mark.parametrize("case", list(PROJECT_CASES))
+def test_project_at_pose_matches_jax(case):
     """The ``--visualize`` maps: per level (sat_feat, grd_feat,
     proj_at_pred, proj_at_gt) of both models on one init."""
     from highlyaccurate_tpu.models.lm_s2gp import LMS2GP as JLMS2GP
     from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
 
-    argv = ["--N_iters", "1", "--compute_dtype", "float32"] + S2GP
+    rotation, heading = PROJECT_CASES[case]
+    argv = ["--N_iters", "1", "--compute_dtype", "float32",
+            "--rotation_range", str(rotation)] + S2GP
     params = _jax_params(argv, seed=11)
     jcfg = jconfig_from_args(jcli.parse_args(argv))
     cfg = config_from_args(cli.parse_args(argv))
@@ -281,6 +318,8 @@ def test_project_at_pose_matches_jax():
     grd = rng.rand(1, 32, 128, 3).astype(np.float32)
     pred = rng.uniform(-0.5, 0.5, (1, 3)).astype(np.float32)
     gt = rng.uniform(-0.5, 0.5, (1, 3)).astype(np.float32)
+    if heading is not None:
+        pred[:, 2] = heading
     want = JLMS2GP(cfg=jcfg).apply(
         {"params": params}, *(jnp.asarray(a) for a in (sat, grd, pred, gt)),
         method="project_at_pose")

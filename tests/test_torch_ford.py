@@ -340,10 +340,6 @@ REFUSED = {
     "pose_hypotheses": dict(pose_hypotheses=4),
     "using_weight": dict(using_weight=1), "dropout": dict(dropout=2),
     "level_first": dict(level_first=1), "proj": dict(proj="polar"),
-    "use_fused_moments": dict(use_fused_moments=0),
-    "use_implicit_lm": dict(use_implicit_lm=0),
-    "use_banded_warp": dict(use_banded_warp=0),
-    "compute_dtype": dict(compute_dtype="bfloat16"),
 }
 
 
@@ -354,6 +350,71 @@ def test_unsupported_ford_options_raise(opt):
     with pytest.raises(NotImplementedError, match=name):
         Localizer(Config(**TINY, **opt), random_init=True, device="cpu",
                   ford_extrinsics=(R_FL, T_FL), ford_side_m=SIDE_M)
+
+
+# Options the port carries since the gather path came (they were refused
+# before): each held to the JAX package on one init through the model's
+# evaluation forward.  Banded cases on TINY's rig (JAX
+# ``use_banded_warp=2``, fp32 map): round 1 atol 1e-5, all rounds 1e-4
+# (measured 8.4e-7 / 3.2e-6 and 9.2e-7 / 4.7e-6 at KITTI S2GP's sizes).
+# The gather sampler under the Ford data's own rig (``REAL_TINY``) against
+# the JAX gather path, the same limits (measured 3.9e-7 / 4.1e-7).  bf16
+# features against JAX at bf16: relL2 over the batch's poses, round 1 <=
+# 2e-2 and final <= 0.15, the limits of tests/test_torch_bf16.py.
+LIFTED = {
+    "use_fused_moments": (dict(use_fused_moments=0, banded_bf16_map=0),
+                          dict(use_banded_warp=2)),
+    "use_implicit_lm": (dict(use_implicit_lm=0, banded_bf16_map=0),
+                        dict(use_banded_warp=2)),
+    "use_banded_warp": (dict(use_banded_warp=0), {}),
+    "compute_dtype": (dict(compute_dtype="bfloat16"),
+                      dict(use_banded_warp=2)),
+}
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("name", list(LIFTED))
+def test_lifted_option_matches_jax(name):
+    kw, jax_kw = LIFTED[name]
+    real = name == "use_banded_warp"
+    geom = REAL_TINY if real else TINY
+    side = REAL_SIDE_M if real else SIDE_M
+    rng = np.random.RandomState(9)
+    A, H, W = geom["sat_size"], geom["grd_h"], geom["grd_w"]
+    sat = rng.rand(B, A, A, 3).astype(np.float32)
+    grd = rng.rand(B, H, W, 3).astype(np.float32)
+    R, T = ((np.broadcast_to(REAL_R_FL, (B, 3, 3)).copy(),
+             np.broadcast_to(REAL_T_FL, (B, 3)).copy()) if real else _rig())
+    net = JVGGUnet(level=3)
+    params = {"SatFeatureNet": net.init(jax.random.PRNGKey(9),
+                                        jnp.asarray(sat[:1]))["params"],
+              "GrdFeatureNet": net.init(jax.random.PRNGKey(109),
+                                        jnp.asarray(grd[:1]))["params"],
+              "damping": np.zeros((1, 3), np.float32)}
+    jmodel = JLMS2GPFord(cfg=JConfig(**geom, **kw, **jax_kw))
+    want = np.stack([np.asarray(w) for w in jmodel.apply(
+        {"params": params}, jnp.asarray(sat), jnp.asarray(grd), side,
+        jnp.asarray(R), jnp.asarray(T), mode="trajectory",
+        rngs={"lm": jax.random.PRNGKey(3)})], -1)
+    assert np.all(np.abs(want[..., :2]) < 2.5), "parity input left the range"
+    assert np.abs(want).max() > 1e-2, "the pose never moved"
+    port = LMS2GPFord(Config(**geom, **kw), device="cpu")
+    port.load_state_dict(state_dict_from_jax(params))
+    got = np.stack([g.numpy() for g in port(
+        torch.from_numpy(sat), torch.from_numpy(grd), side,
+        torch.from_numpy(R), torch.from_numpy(T), mode="trajectory",
+        generator=torch.Generator().manual_seed(3))], -1)
+    if name == "compute_dtype":
+        assert _rel_l2(got[:, 0, 0], want[:, 0, 0]) <= 2e-2
+        assert _rel_l2(got[:, -1, -1], want[:, -1, -1]) <= 0.15
+        return
+    np.testing.assert_allclose(got[:, 0, 0], want[:, 0, 0], atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 def test_ford_entry_errors():

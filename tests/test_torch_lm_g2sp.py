@@ -225,15 +225,56 @@ def test_localizer_matches_jax():
 REFUSED = {
     "proj": dict(proj="polar"), "Optimizer": dict(Optimizer="SGD"),
     "using_weight": dict(using_weight=1),
-    "banded_bf16_map": dict(banded_bf16_map=0),
-    "use_banded_warp": dict(use_banded_warp=0),
     "Optimizer_NN": dict(Optimizer="NN"),
     "pose_hypotheses": dict(pose_hypotheses=4),
-    # bf16 features are served (tests/test_torch_bf16.py), but they do not
-    # lift the refusal of banded_bf16_map=0: for G2SP that flag leaves the
-    # banded path in JAX whatever the compute dtype (lm_g2sp.py:230-234)
-    "compute_dtype": dict(banded_bf16_map=0, compute_dtype="bfloat16"),
 }
+
+# Options the port carries since the gather path came (they were refused
+# before): ``banded_bf16_map=0`` leaves the banded path in JAX
+# (lm_g2sp.py:230-234), as ``use_banded_warp=0`` does, so every level
+# takes the gather sampler; with bf16 features (``compute_dtype``) it
+# samples the bf16 ground maps.  Each trajectory against JAX's on one init:
+# round 1 atol 1e-5 and all rounds 1e-4 (measured 8.4e-8 and 2.2e-7 at
+# use_banded_warp=0); bf16 features relL2 over the batch's poses, round 1
+# <= 2e-2 and final <= 0.15 (tests/test_torch_bf16.py's limits).
+LIFTED = {
+    "banded_bf16_map": (dict(banded_bf16_map=0), dict(use_banded_warp=2)),
+    "use_banded_warp": (dict(use_banded_warp=0), {}),
+    "compute_dtype": (dict(banded_bf16_map=0, compute_dtype="bfloat16"),
+                      dict(use_banded_warp=2)),
+}
+
+
+def _rel_l2(got, want):
+    return float(np.linalg.norm(got - want)
+                 / max(np.linalg.norm(want), 1e-30))
+
+
+@pytest.mark.parametrize("name", list(LIFTED))
+def test_lifted_option_matches_jax(name):
+    from highlyaccurate_tpu_torch.models.lm_g2sp import projline_slots
+    kw, jax_kw = LIFTED[name]
+    assert not any(projline_slots(Config(**TINY, **kw)).values())
+    params = _params(12)
+    sat, grd = _images(13)
+    k = _camera_k()
+    want = np.stack([np.asarray(w) for w in JLMG2SP(
+        cfg=JConfig(**TINY, **kw, **jax_kw)).apply(
+        {"params": params}, jnp.asarray(sat), jnp.asarray(grd),
+        jnp.asarray(k), mode="trajectory")], -1)
+    assert np.abs(want).max() > 1e-2, "the pose never moved"
+    port = _port_model(params, **kw)
+    with torch.no_grad():
+        got = np.stack([g.numpy() for g in port(
+            torch.from_numpy(sat), torch.from_numpy(grd),
+            torch.from_numpy(k), mode="trajectory")], -1)
+    if name == "compute_dtype":
+        assert _rel_l2(got[:, 0, 0], want[:, 0, 0]) <= 2e-2
+        assert _rel_l2(got[:, -1, -1], want[:, -1, -1]) <= 0.15
+        return
+    np.testing.assert_allclose(got[:, 0, 0], want[:, 0, 0], atol=1e-5,
+                               rtol=0)
+    np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
 @pytest.mark.parametrize("opt", list(REFUSED.values()), ids=list(REFUSED))
@@ -248,9 +289,10 @@ def test_unsupported_g2sp_options_raise(opt):
 def test_g2sp_refusals_and_errors():
     from highlyaccurate_tpu_torch.inference import Localizer
     # a 32-row ground input: the coarse level's map is 4 rows, which the
-    # JAX package samples with the gather sampler
-    with pytest.raises(NotImplementedError, match="gather sampler"):
-        LMG2SP(Config(**dict(TINY, grd_h=32, grd_w=128)), device="cpu")
+    # JAX package samples with the gather sampler, and so does the port
+    # (tests/test_torch_gather_path.py holds it to JAX)
+    mixed = LMG2SP(Config(**dict(TINY, grd_h=32, grd_w=128)), device="cpu")
+    assert mixed._projline == {0: False, 1: True, 2: True}
     loc = Localizer(Config(**TINY), random_init=True, device="cpu")
     sat, grd = _images(0, n=1)
     with pytest.raises(ValueError, match="camera intrinsics"):

@@ -100,3 +100,105 @@ def test_partial_solve_keeps_out_of_range_shifts():
         torch.Generator().manual_seed(0)).numpy()
     np.testing.assert_array_equal(got, pose)
     np.testing.assert_array_equal(want, pose)
+
+
+# --- the gather path's updates ---------------------------------------------
+# lm_update on a materialized Jacobian (S2GP / Ford settings: normalized
+# features and the re-init; G2SP settings: raw features, raw damping, no
+# re-init) and lm_update_implicit_pixel_norm (S2GP / Ford per-pixel) on the
+# same seeded samples; the same tolerance as above (measured <= 3e-7).
+
+H, WP, C = 4, 6, 5
+
+
+def _pixel_inputs(seed):
+    """Sampled values and screen derivatives, a target, a ray mask with
+    holes and a per-pixel duv, as the gather sampler feeds the updates."""
+    rng = np.random.RandomState(seed)
+    out, dx, dy, grd = (rng.randn(B, H, WP, C).astype(np.float32)
+                        for _ in range(4))
+    mask = (rng.rand(1, H, WP) > 0.25).astype(np.float32)
+    duv = (rng.randn(B, H, WP, 2, 3) * 0.3).astype(np.float32)
+    pose = rng.uniform(-0.3, 0.3, (B, 3)).astype(np.float32)
+    damping = rng.randn(1, 3).astype(np.float32)
+    return out, dx, dy, grd, mask, duv, pose, damping
+
+
+def _materialized(out, dx, dy, grd, mask, duv):
+    """(sat, grd, jac) as the gather ``_project`` feeds ``lm_update``: the
+    Jacobian dx * duv_u + dy * duv_v, every piece masked."""
+    m = mask[..., None]
+    jac = (dx[..., None] * duv[..., None, 0, :]
+           + dy[..., None] * duv[..., None, 1, :]) * m[..., None]
+    return out * m, grd * m, jac
+
+
+SETTINGS = {"S2GP": dict(normalize=True),
+            "G2SP": dict(normalize=False, reinit=False, raw_damping=True)}
+UPDATE_CASES = ([("S2GP", c) for c in CASES]
+                + [("G2SP", dict()), ("G2SP", dict(train_damping=True))])
+
+
+@pytest.mark.parametrize("family,overrides", UPDATE_CASES,
+                         ids=[f"{f}-{'-'.join(o) or 'default'}"
+                              for f, o in UPDATE_CASES])
+def test_lm_update_matches(family, overrides):
+    out, dx, dy, grd, mask, duv, pose, damping = _pixel_inputs(23)
+    sat, tgt, jac = _materialized(out, dx, dy, grd, mask, duv)
+    kw = dict(SETTINGS[family], **overrides)
+    want = np.asarray(ju.lm_update(
+        jnp.asarray(pose), jnp.asarray(sat), None, jnp.asarray(tgt),
+        jnp.asarray(mask[..., None].repeat(B, 0)), jnp.asarray(jac),
+        jnp.asarray(damping), ju.LMConfig(**kw),
+        jax.random.PRNGKey(4) if family == "S2GP" else None))
+    # the step itself stays inside the re-init range (a redraw would hide)
+    kept = np.asarray(ju.lm_update(
+        jnp.asarray(pose), jnp.asarray(sat), None, jnp.asarray(tgt),
+        jnp.asarray(mask[..., None].repeat(B, 0)), jnp.asarray(jac),
+        jnp.asarray(damping),
+        ju.LMConfig(**dict(kw, reinit=False))))
+    assert np.all(np.abs(kept[:, :2]) < 2.5), "parity input left the range"
+    assert np.abs(want - pose).max() > 1e-3, "the pose never moved"
+    got = tu.lm_update(
+        *(torch.from_numpy(a) for a in (pose, sat, tgt, jac, damping)),
+        tu.LMConfig(**kw), torch.Generator().manual_seed(4)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("overrides", CASES)
+def test_implicit_pixel_norm_matches(overrides):
+    out, dx, dy, grd, mask, duv, pose, damping = _pixel_inputs(29)
+    want = np.asarray(ju.lm_update_implicit_pixel_norm(
+        *(jnp.asarray(a) for a in (pose, out, dx, dy, grd, mask, duv,
+                                   damping)),
+        ju.LMConfig(normalize=True, **overrides), jax.random.PRNGKey(5)))
+    kept = np.asarray(ju.lm_update_implicit_pixel_norm(
+        *(jnp.asarray(a) for a in (pose, out, dx, dy, grd, mask, duv,
+                                   damping)),
+        ju.LMConfig(normalize=True, reinit=False, **overrides)))
+    assert np.all(np.abs(kept[:, :2]) < 2.5), "parity input left the range"
+    assert np.abs(want - pose).max() > 1e-3, "the pose never moved"
+    got = tu.lm_update_implicit_pixel_norm(
+        *(torch.from_numpy(a) for a in (pose, out, dx, dy, grd, mask, duv,
+                                        damping)),
+        tu.LMConfig(**overrides), torch.Generator().manual_seed(5)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
+
+
+def test_implicit_pixel_norm_is_lm_update_on_the_jacobian():
+    """The per-pixel implicit update equals ``lm_update`` on the Jacobian
+    it never materializes (masked samples, masked target): the identity
+    the JAX package's gather path rests on."""
+    out, dx, dy, grd, mask, duv, pose, damping = _pixel_inputs(31)
+    t = [torch.from_numpy(a) for a in (pose, out, dx, dy, grd, mask, duv,
+                                       damping)]
+    cfg = tu.LMConfig(use_hessian=True)
+    implicit = tu.lm_update_implicit_pixel_norm(
+        *t, cfg, torch.Generator().manual_seed(6))
+    sat, tgt, jac = (torch.from_numpy(a) for a in _materialized(
+        out, dx, dy, grd, mask, duv))
+    full = tu.lm_update(t[0], sat, tgt, jac, t[-1], cfg,
+                        torch.Generator().manual_seed(6))
+    assert (implicit - t[0]).abs().max() > 1e-3
+    np.testing.assert_allclose(implicit.numpy(), full.numpy(), rtol=1e-5,
+                               atol=1e-6)
