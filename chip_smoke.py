@@ -101,9 +101,26 @@ Builds the hand-written kernels from the sources in the checkout, then:
    ``--transformer 1`` epoch from a ``Model_best`` in the base experiment,
    whose feature networks must stay bit-equal (chiprun_out/cli_ford.log).
 
+12. serving_api: the rest of the serving API at the flagship widths
+   (``phase_serving_api``): the host microseconds of a K1 launch through
+   its custom op against the bare ctypes launch;
+   ``predict(return_cov=True)`` of S2GP, G2SP and Ford at batch 8 (15
+   launches of the solver kernel per batch; the covariance finite,
+   symmetric, positive definite on the active DoFs; the covariance at
+   one pose against the CPU twin at batch 2); the
+   multi-start sweep of S2GP and G2SP with 4 hypotheses at batch 2 (the
+   same draws on the card and the CPU twin: the same winner, the pose
+   within ``SERVING_MULTI_TOL``; a window whose solver kernel launches at
+   batch 8, frames/s); ``calibrate`` on two synthetic batches; and
+   ``export`` of S2GP and G2SP with batch sizes [1, 8], served by
+   ``ExportedLocalizer`` in a fresh process (its launches, its outputs
+   against the live Localizer's, its batch-1 latency; artifacts under
+   build/serving_api/).
+
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
 second checkout in DIR (the parent commit) and of this one in turns, and
-``--ab-e2e DIR`` the S2GP serving and training cells (``ab_turns``).
+``--ab-e2e DIR`` the S2GP serving and training cells (``ab_turns``);
+``--serving-api`` runs the kernels' build and phase 12 alone.
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -119,6 +136,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -2220,6 +2238,454 @@ def cli_ford_transformer(torch, family, cfg, base_path, root, run, steps,
                     and all(torch.equal(got[k], want[k]) for k in frozen)))
 
 
+# the rest of the serving API (serving_api): limits of the card against
+# the CPU twin, each between the reading and a known perturbation, TF32
+# convolutions (NVIDIA H100 80GB HBM3, 700 W; PERF.md section 5): the
+# covariance at one pose, relative Frobenius per image (read 1.1e-7 /
+# 4.2e-7 / 2.8e-7 for S2GP / G2SP / Ford against 1.4e-4 / 5.3e-5 /
+# 1.6e-4 with TF32), and the
+# multi-start winning pose after 15 rounds, normalized (read 1.5e-4 /
+# 4.2e-7 against 6.1e-4 / 9.5e-5).  An exported program's outputs against
+# the live Localizer's: its batch-1 tail runs other cuDNN algorithms than
+# the live batch of 8, whose last bits 15 rounds amplify as they amplify
+# the card's against the CPU's (main_path's all_rounds_max_abs: up to
+# 1.7e-3), so 1e-2 normalized (read 1.4e-3 / 5.0e-7; the full batch bit
+# for bit)
+SERVING_COV_TOL = 1e-5
+SERVING_MULTI_TOL = {"S2GP": 4e-4, "G2SP": 1e-5}
+SERVING_EXPORT_TOL = 1e-2
+SERVING_P = 4          # multi-start hypotheses at batch 2: B x P = 8
+SERVING_MS_IMAGES = 16  # the multi-start window, 8 batches of 2
+SERVING_ROOT = "build/serving_api"
+# run by phase_serving_api in a process of its own per family, from the
+# repository root, the two at once: the family's Localizer
+# (the weights of seed 0, as the live one's) exported with batch sizes
+# [1, 8]; prints the trace's seconds and a checksum of the weights
+EXPORT_CHILD = """
+import json, sys, time, torch
+import chip_smoke as cs
+from highlyaccurate_tpu_torch.inference import Localizer
+family = sys.argv[1]
+cfg, _, kw, _, _ = cs.serving_family(torch, torch.device("cuda", 0), family)
+loc = Localizer(cfg, random_init=True, batch_size=cs.BATCH, seed=0, **kw)
+t0 = time.perf_counter()
+loc.export(cs.SERVING_ROOT + "/" + family + ".zip",
+           batch_sizes=[1, cs.BATCH])
+print(json.dumps(dict(export_s=time.perf_counter() - t0,
+                      weights=cs.weights_sum(loc.model))), flush=True)
+"""
+# run after them in a fresh process: each exported artifact served by
+# ExportedLocalizer on the images the live Localizer predicted; prints
+# one JSON line per family
+EXPORTED_CHILD = """
+import json, sys, time
+import numpy as np, torch
+import chip_smoke as cs
+from highlyaccurate_tpu_torch.inference import ExportedLocalizer
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+for family in sys.argv[1:]:
+    root = cs.SERVING_ROOT + "/" + family
+    t0 = time.perf_counter()
+    srv = ExportedLocalizer(root + ".zip", seed=0)
+    load_s = time.perf_counter() - t0
+    d = np.load(root + "_in.npz")
+    cs.reset_launches()
+    out = srv.predict(d["sat"], d["grd"])
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in cs._counters().items()}
+    np.savez(root + "_out.npz", **out)
+    ms = []
+    for _ in range(6):
+        t0 = time.perf_counter()
+        srv.predict(d["sat"][:1], d["grd"][:1])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    print(json.dumps(dict(family=family, load_s=load_s, launches=launches,
+                          batch1_ms=float(np.median(ms[1:])))), flush=True)
+"""
+
+
+def serving_family(torch, dev, family, **over):
+    """(Config, model class, Localizer kwargs, the forward's extra inputs
+    of n images on ``device``, the launch key of its solver kernel) of a
+    serving family at the flagship widths."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.models.ford import LMS2GPFord
+    from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
+    from highlyaccurate_tpu_torch.models.lm_s2gp import (LMS2GP,
+                                                         _scaled_default_k)
+    if family == "G2SP":
+        cfg = Config(direction="G2SP", **over)
+        k = _scaled_default_k(cfg)
+        return (cfg, LMG2SP, dict(camera_k=k), lambda n, d: (
+            torch.from_numpy(k).to(d).expand(n, 3, 3).contiguous(),), "k4")
+    cfg = Config(**over)
+    if family == "Ford":
+        R, T = ford_rig(torch, BATCH)
+        # the rig stays on the host, where the model reads its layout
+        return (cfg, LMS2GPFord, dict(ford_extrinsics=(R[0].numpy(),
+                                                       T[0].numpy()),
+                                      ford_side_m=FORD_SIDE_M),
+                lambda n, d: (FORD_SIDE_M, R[:n], T[:n]), "k1")
+    return cfg, LMS2GP, {}, lambda n, d: (), "k1"
+
+
+def rel_fro(got, want):
+    """The largest relative Frobenius error over [N, 3, 3] matrices."""
+    return float(max(np.linalg.norm(g - w) / np.linalg.norm(w)
+                     for g, w in zip(got, want)))
+
+
+def pose_info(torch, family, model, sat, grd, extra, pose):
+    """The normalized covariance [B, 3, 3] of ``model`` at ``pose``."""
+    with torch.no_grad():
+        sf, _, gf, _ = model.extract_features(sat, grd)
+        if family == "G2SP":
+            return model._pose_info(sf, gf, pose, extra[0]).cpu().numpy()
+        geo = (model._geo(extra[1], extra[2], extra[0]),) \
+            if family == "Ford" else ()
+        return model._pose_info(sf, gf, pose, *geo).cpu().numpy()
+
+
+def serving_cov(torch, dev, family):
+    """``predict(return_cov=True)`` at batch 8 (two batches, exactly 15
+    launches of the family's solver kernel per batch, no other kernel):
+    the metric covariance finite, symmetric, positive definite on the
+    active DoFs and zero on the frozen ones; then the covariance at one
+    pose on the card against the CPU twin at batch 2, beside the card with
+    TF32 convolutions.  Returns (row, the Localizer)."""
+    from highlyaccurate_tpu_torch.inference import Localizer
+    cfg, cls, kw, extra, key = serving_family(torch, dev, family)
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0, **kw)
+    sat, grd = serve_images(cfg, 6, 2 * BATCH)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        loc.predict(sat[:BATCH], grd[:BATCH], return_cov=True)  # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        t0 = time.perf_counter()
+        out = loc.predict(sat, grd, return_cov=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if not any("UNCALIBRATED" in str(w.message) for w in caught):
+        fail(f"{family} return_cov: no uncalibrated warning")
+    counts = expect_launches(f"{family} return_cov",
+                             {key: 2 * cfg.N_iters * cfg.n_levels})
+    cov = out["cov"].astype(np.float64)
+    act = list(cfg.active_pose_dims)
+    frozen = [i for i in range(3) if i not in act]
+    eig = np.linalg.eigvalsh(cov[:, act][:, :, act])
+    asym = float(np.abs(cov - cov.transpose(0, 2, 1)).max()
+                 / np.abs(cov).max())
+    if (cov.shape != (2 * BATCH, 3, 3) or not np.isfinite(cov).all()
+            or asym > 1e-6 or eig.min() <= 0
+            or (cov[:, frozen] != 0).any()):
+        fail(f"{family} return_cov: shape {cov.shape}, asymmetry {asym}, "
+             f"least eigenvalue {eig.min()}")
+    model = loc.model
+    s2, g2 = (t[:2] for t in first_batch(torch, dev, sat, grd))
+    pose = torch.from_numpy(np.random.RandomState(7).uniform(
+        -0.3, 0.3, (2, 3)).astype(np.float32))
+    t0 = time.perf_counter()
+    cpu = cpu_twin(cls, model)
+    want = pose_info(torch, family, cpu, s2.cpu(), g2.cpu(),
+                     extra(2, "cpu"), pose)
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    got = pose_info(torch, family, model, s2, g2, extra(2, dev),
+                    pose.to(dev))
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = pose_info(torch, family, model, s2, g2, extra(2, dev),
+                         pose.to(dev))
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    vs_cpu = dict(batch=2, cov_rel_fro=rel_fro(got, want),
+                  cov_rel_fro_tf32_convs=rel_fro(tf32, want),
+                  tol=SERVING_COV_TOL, cpu_s=cpu_s)
+    if not vs_cpu["cov_rel_fro"] <= SERVING_COV_TOL:
+        fail(f"{family} covariance, card vs CPU: {vs_cpu}")
+    return dict(family=family, images=2 * BATCH, wall_s=wall,
+                ms_per_batch=wall / 2 * 1e3, launches=counts,
+                cov_sd_first=np.sqrt(np.diagonal(cov[0])).tolist(),
+                least_eigenvalue=float(eig.min()), asymmetry=asym,
+                frozen_dofs=frozen, cov_card_vs_cpu=vs_cpu), loc
+
+
+def serving_multi_start(torch, dev, family):
+    """``pose_hypotheses = SERVING_P`` at batch 2: the same draws (the
+    starts, then every round's re-init numbers) to the card and to the CPU
+    twin through ``hypotheses``; the winner index equal on both and the
+    winning pose within ``SERVING_MULTI_TOL`` (normalized), beside the
+    card with TF32 convolutions; then a window of ``Localizer.predict``
+    whose solver kernel launches 15 times per batch, each at batch
+    B x P = 8, and no other kernel."""
+    from highlyaccurate_tpu_torch.inference import Localizer
+    from highlyaccurate_tpu_torch.models.lm_s2gp import eval_draws_per_image
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+    from highlyaccurate_tpu_torch.solver.updates import PresetDraws
+    cfg, cls, kw, extra, key = serving_family(torch, dev, family,
+                                              pose_hypotheses=SERVING_P)
+    loc = Localizer(cfg, random_init=True, batch_size=2, seed=0, **kw)
+    model = loc.model
+    sat, grd = serve_images(cfg, 8, SERVING_MS_IMAGES)
+    s2, g2 = (t[:2] for t in first_batch(torch, dev, sat, grd))
+    n = 2 * eval_draws_per_image(cfg, model.lm_cfg)
+    draws = torch.from_numpy(np.random.RandomState(9).uniform(
+        -1.0, 1.0, n).astype(np.float32))
+
+    def sweep(m, device):
+        args = extra(2, device)
+        with torch.no_grad():
+            sf, _, gf, _ = m.extract_features(s2.to(device), g2.to(device))
+            gen = PresetDraws(draws.to(device))
+            if family == "G2SP":
+                final, cost = m.hypotheses(sf, gf, args[0], None, gen)
+            else:
+                final, cost = m.hypotheses(sf, gf, None, gen)
+        best = cost.argmin(1)
+        return (final[torch.arange(2, device=final.device), best].cpu()
+                .numpy(), best.cpu().numpy(), cost.cpu().numpy())
+
+    t0 = time.perf_counter()
+    cpu = cpu_twin(cls, model)
+    want, want_best, want_cost = sweep(cpu, "cpu")
+    cpu_s = time.perf_counter() - t0
+    del cpu
+    got, got_best, got_cost = sweep(model, dev)
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32, tf32_best, _ = sweep(model, dev)
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    gap = np.sort(want_cost, 1)
+    vs_cpu = dict(batch=2, hypotheses=SERVING_P,
+                  winner_card=got_best.tolist(),
+                  winner_cpu=want_best.tolist(),
+                  winner_tf32_convs=tf32_best.tolist(),
+                  cost_gap_cpu=(gap[:, 1] - gap[:, 0]).tolist(),
+                  pose_max_abs=float(np.abs(got - want).max()),
+                  pose_max_abs_tf32_convs=float(np.abs(tf32 - want).max()),
+                  tol=SERVING_MULTI_TOL[family], cpu_s=cpu_s)
+    if (got_best != want_best).any() or \
+            not vs_cpu["pose_max_abs"] <= SERVING_MULTI_TOL[family]:
+        fail(f"{family} multi-start, card vs CPU: {vs_cpu}")
+    # the window: every launch of the solver kernel at batch B x P
+    batches = []
+    op_name = "_banded_moments_op" if key == "k1" else "_projline_sample_op"
+    mod = bw if key == "k1" else tpl
+    op = getattr(mod, op_name)
+
+    def seen(t, *a):
+        batches.append(t.shape[0])
+        return op(t, *a)
+
+    loc.predict(sat[:2], grd[:2])   # warm-up
+    torch.cuda.synchronize()
+    setattr(mod, op_name, seen)
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        loc.predict(sat, grd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        setattr(mod, op_name, op)
+    n_batches = SERVING_MS_IMAGES // 2
+    counts = expect_launches(f"{family} multi-start",
+                             {key: n_batches * cfg.N_iters * cfg.n_levels})
+    if set(batches) != {2 * SERVING_P}:
+        fail(f"{family} multi-start launched at batches {set(batches)}")
+    return dict(family=family, hypotheses=SERVING_P, batch=2,
+                kernel_batch=2 * SERVING_P, images=SERVING_MS_IMAGES,
+                wall_s=wall, frames_per_s=SERVING_MS_IMAGES / wall,
+                ms_per_batch=wall / n_batches * 1e3, launches=counts,
+                card_vs_cpu=vs_cpu)
+
+
+def serving_calibrate(torch, loc):
+    """``calibrate`` on two synthetic batches of 8 with ground-truth
+    poses: a finite positive scale; ``predict(return_cov=True)`` then
+    warns no more."""
+    cfg = loc.cfg
+    rng = np.random.RandomState(10)
+    batches = []
+    for b in range(2):
+        sat, grd = serve_images(cfg, 11 + b, BATCH)
+        gt = np.stack([rng.uniform(-5, 5, BATCH), rng.uniform(-5, 5, BATCH),
+                       rng.uniform(-3, 3, BATCH)], -1).astype(np.float32)
+        batches.append(dict(sat=sat, grd=grd, gt_pose=gt))
+    t0 = time.perf_counter()
+    scale = loc.calibrate(batches)
+    secs = time.perf_counter() - t0
+    if not (np.isfinite(scale) and scale > 0):
+        fail(f"calibrate: scale {scale}")
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        out = loc.predict(batches[0]["sat"], batches[0]["grd"],
+                          return_cov=True)
+    if not np.isfinite(out["cov"]).all():
+        fail("calibrate: non-finite covariance after the fit")
+    return dict(batches=2, batch=BATCH, cov_scale=scale, seconds=secs)
+
+
+def weights_sum(model) -> float:
+    """A checksum of a model's weights and buffers."""
+    return float(sum(t.double().sum() for t in model.state_dict().values()))
+
+
+def start_exports(families):
+    """One ``EXPORT_CHILD`` process per family, started at once (the
+    traces are host work); output under ``SERVING_ROOT``."""
+    os.makedirs(SERVING_ROOT, exist_ok=True)
+    procs = {}
+    for family in families:
+        with open(f"{SERVING_ROOT}/{family}_export.log", "w") as log:
+            procs[family] = subprocess.Popen(
+                [sys.executable, "-c", EXPORT_CHILD, family],
+                stdout=subprocess.PIPE, stderr=log, text=True)
+    return procs
+
+
+def serving_export(torch, dev, procs):
+    """S2GP and G2SP exported with ``batch_sizes=[1, 8]`` by ``procs``
+    (``start_exports``); the live Localizers of the same weights predict
+    9 images (a batch of 8 and a tail of 1); then a fresh process serves
+    each artifact through ``ExportedLocalizer`` (``EXPORTED_CHILD``): its
+    launches (exactly 15 of the solver kernel per batch, through the
+    custom ops), its outputs against the live ones (bit for bit where the
+    batch matches, else within ``SERVING_EXPORT_TOL`` normalized) and its
+    batch-1 latency."""
+    from highlyaccurate_tpu_torch.inference import Localizer
+    rows, live, keys = [], {}, {}
+    for family, proc in procs.items():
+        cfg, _, kw, _, key = serving_family(torch, dev, family)
+        loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                        **kw)
+        root = f"{SERVING_ROOT}/{family}"
+        out, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            fail(f"export of {family} exited {proc.returncode}: see "
+                 f"{root}_export.log")
+        child = json.loads(out.strip().splitlines()[-1])
+        if child["weights"] != weights_sum(loc.model):
+            fail(f"export of {family}: other weights than the live model")
+        sat, grd = serve_images(cfg, 12, BATCH + 1)
+        live[family] = loc.predict(sat, grd)
+        np.savez(root + "_in.npz", sat=sat, grd=grd)
+        keys[family] = key
+        rows.append(dict(family=family, batch_sizes=[1, BATCH],
+                         export_s=child["export_s"], artifact_mb=
+                         os.path.getsize(root + ".zip") / 1e6))
+        del loc
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-c", EXPORTED_CHILD, *procs],
+                         capture_output=True, text=True, timeout=600)
+    child_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"ExportedLocalizer process exited {run.returncode}: "
+             f"{run.stderr[-4000:]}")
+    children = [json.loads(ln) for ln in run.stdout.splitlines()
+                if ln.startswith("{")]
+    for row, child in zip(rows, children):
+        family = row["family"]
+        want = {k: 15 * 2 if k == keys[family] else 0
+                for k in child["launches"]}
+        if child["launches"] != want:
+            fail(f"exported {family} launched {child['launches']}, "
+                 f"expected {want}")
+        got = np.load(f"{SERVING_ROOT}/{family}_out.npz")
+        cfg = serving_family(torch, dev, family)[0]
+        scale = np.array([cfg.shift_range_lat, cfg.shift_range_lon,
+                          cfg.rotation_range])
+        diff = np.stack([np.abs(got[k] - live[family][k]) for k in
+                         ("lateral_m", "longitudinal_m", "heading_deg")],
+                        -1) / scale
+        row.update(child, bit_equal_first_batch=bool(
+            (diff[:BATCH] == 0).all()), bit_equal=bool((diff == 0).all()),
+            max_abs_normalized=float(diff.max()), tol=SERVING_EXPORT_TOL,
+            child_s=child_s)
+        if not row["max_abs_normalized"] <= SERVING_EXPORT_TOL:
+            fail(f"exported {family} differs from the live Localizer: "
+                 f"{row}")
+    return rows
+
+
+def op_overhead(torch, dev):
+    """Host microseconds per K1 launch through its custom op and through
+    the ctypes launch the op wraps (what the eager path cost before the
+    op): 500 calls each at one small shape (batch 8, A 64, C 64, 16 rows
+    of 64 samples), where the host's enqueue bounds the call, in turns
+    ctypes / op / op / ctypes."""
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+    g = torch.Generator(device=dev).manual_seed(0)
+    B, A, C, V, W = 8, 64, 64, 16, 64
+    sat = torch.rand(B, A, A, C, generator=g, device=dev).to(torch.bfloat16)
+    grd = torch.rand(B, V, W, C, generator=g, device=dev)
+    mask = torch.ones(V, W, device=dev)
+    uv0 = torch.rand(B, V, 2, generator=g, device=dev) * 20 + 4
+    coefs = bw.pack_row_coefs(uv0, uv0 + torch.tensor([1.0, 0.1],
+                                                      device=dev),
+                              A, bw.default_rb(A), W)
+
+    def per_call(fn):
+        fn(sat, grd, mask, coefs, True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(500):
+            fn(sat, grd, mask, coefs, True)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / 500 * 1e6
+
+    turns = [per_call(fn) for fn in (bw._launch, bw._banded_moments_op,
+                                     bw._banded_moments_op, bw._launch)]
+    return dict(ctypes_us=[turns[0], turns[3]], custom_op_us=turns[1:3])
+
+
+def phase_serving_api(torch, dev):
+    """The rest of the serving API at the flagship widths (level 3,
+    N_iters 5, sat 512, grd 256x1024, fp32 features, bf16 map, random
+    weights, seeded images): the host cost of K1's custom op
+    (``op_overhead``), ``return_cov`` for S2GP, G2SP and Ford at
+    batch 8 (``serving_cov``), multi-start for S2GP and G2SP
+    (``serving_multi_start``), ``calibrate`` (``serving_calibrate``) and
+    ``export`` / ``ExportedLocalizer`` (``serving_export``; the two
+    exports trace at once in processes of their own).  Prints one JSON
+    line."""
+    t_start = time.perf_counter()
+    overhead = op_overhead(torch, dev)
+    cov, locs = [], {}
+    for family in ("S2GP", "G2SP", "Ford"):
+        row, locs[family] = serving_cov(torch, dev, family)
+        cov.append(row)
+    calib = serving_calibrate(torch, locs["S2GP"])
+    del locs
+    torch.cuda.empty_cache()
+    multi = [serving_multi_start(torch, dev, f) for f in ("S2GP", "G2SP")]
+    torch.cuda.empty_cache()
+    # the two traces run at once, after the timed windows: each holds a
+    # core of the host the windows' launches need
+    procs = start_exports(("S2GP", "G2SP"))
+    try:
+        exported = serving_export(torch, dev, procs)
+        torch.cuda.empty_cache()
+    finally:
+        for proc in procs.values():   # stopped here if a check failed
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    row = dict(phase="serving_api", config="level 3, N_iters 5, sat 512, "
+               "grd 256x1024, fp32 features, bf16 map, TF32 off, random "
+               "weights", k1_host_us_per_launch=overhead, return_cov=cov,
+               calibrate=calib, multi_start=multi, export=exported,
+               seconds=time.perf_counter() - t_start)
+    emit(row)
+    return row
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -2340,6 +2806,8 @@ def main():
     t0 = time.perf_counter()
     phase_cli_ford(torch, gpu)
     emit(dict(phase="cli_ford_total", seconds=time.perf_counter() - t0))
+    torch.cuda.empty_cache()
+    phase_serving_api(torch, dev)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes
@@ -2424,8 +2892,24 @@ def ab_turns(flag, parent):
                           turn=turn))
 
 
+def serving_api_alone():
+    """``python3 chip_smoke.py --serving-api``: the kernels' build and the
+    serving_api phase alone."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false")
+    from highlyaccurate_tpu_torch.ops import _build
+    _build.build()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    phase_serving_api(torch, torch.device("cuda", 0))
+    print(f"gpu: {gpu_line()}", flush=True)
+
+
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in AB_RUNS:
         ab_turns(sys.argv[1], os.path.abspath(sys.argv[2]))
+    elif sys.argv[1:] == ["--serving-api"]:
+        serving_api_alone()
     else:
         main()

@@ -7,10 +7,11 @@ LM_G2SP evaluation and training step (projective-line sampler and its map
 gradient; the fused pixel-moment kernel with ``g2sp_pixel_moments=1``),
 Ford LM_S2GP_Ford serving and training on the banded kernels, and the KITTI
 training and evaluation CLI (``cli/train_kitti.py``, with its data
-pipeline, metrics, checkpoints and bf16 evaluation features), on an NVIDIA
-Hopper GPU.  Each module names its counterpart in
-``highlyaccurate_tpu``; the JAX package stays the numerical reference and
-is never imported from here.
+pipeline, metrics, checkpoints and bf16 evaluation features), the Ford
+CLI, the gather sampler path, and the serving API's covariance,
+multi-start and export (``inference.py``), on an NVIDIA Hopper GPU.  Each
+module names its counterpart in ``highlyaccurate_tpu``; the JAX package
+stays the numerical reference and is never imported from here.
 
     from highlyaccurate_tpu_torch import Config
     from highlyaccurate_tpu_torch.inference import Localizer
@@ -19,6 +20,8 @@ is never imported from here.
     loc = Localizer(Config(direction="G2SP"), pth_path=..., camera_k=K)
     loc = Localizer(Config(), pth_path=..., ford_extrinsics=(R_FL, T_FL),
                     ford_side_m=512 * 0.22)                       # Ford
+    out = loc.predict(sat_imgs, grd_imgs, return_cov=True)   # + "cov"
+    loc.export("loc.zip", batch_sizes=[1, 8])    # ExportedLocalizer(path)
 
     from highlyaccurate_tpu_torch.train.state import create_train_state
     from highlyaccurate_tpu_torch.train.step import make_train_step

@@ -20,9 +20,10 @@ dist < 5 m and angle < 1 deg) improves; the ``--transformer`` restore of
 upstream, only the restore and freeze are live).  ``--test 1 --import_pth``
 evaluates a reference checkpoint on the gather sampler at float32, as the
 JAX CLI resolves it; ``--test 1`` on the port's own ``Model_best`` uses bf16
-features.  ``--pose_hypotheses > 1``, ``--estimate_depth``,
-``--use_gt_depth``, ``--proj`` other than geo and ``--Optimizer`` other
-than LM raise ``NotImplementedError`` naming the option.
+features.  ``--pose_hypotheses P`` evaluates with P starts per image.
+``--estimate_depth``, ``--use_gt_depth``, ``--proj`` other than geo and
+``--Optimizer`` other than LM raise ``NotImplementedError`` naming the
+option.
 """
 
 from __future__ import annotations
@@ -112,8 +113,8 @@ def parse_args(argv=None):
                         "(VGG.py:20)")
     p.add_argument("--keep_optimizer_state", type=int, default=0)
     p.add_argument("--pose_hypotheses", type=int, default=1,
-                   help="multi-start LM hypotheses at eval (not ported "
-                        "yet: only 1)")
+                   help="multi-start LM hypotheses at eval (1 = the "
+                        "reference's single start)")
     p.add_argument("--profile_dir", type=str, default="",
                    help="write a torch.profiler Chrome trace of train "
                         "steps 2-4 of the first epoch into this directory")

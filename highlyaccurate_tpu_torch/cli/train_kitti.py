@@ -16,8 +16,8 @@ epoch's evaluation runs on the same model.  Checkpoints are torch
 ``--use_banded_warp 2`` are accepted and change no output.
 ``--use_banded_warp 0`` runs the gather sampler; it is the faithful
 default of ``--test 1 --import_pth``, which also resolves to the full G2SP
-grid and float32 features, as the JAX CLI does.  ``--pose_hypotheses > 1``
-raises ``NotImplementedError`` naming the option.
+grid and float32 features, as the JAX CLI does.  ``--pose_hypotheses P``
+evaluates with P starts per image (the model's multi-start sweep).
 
 Quirks kept on purpose: Adam is re-created every epoch with a poly-decayed
 lr; ``--test 1`` loads ``model_1`` as the reference loads ``model_1.pth``.
@@ -110,8 +110,8 @@ def parse_args(argv=None):
                         "(0: reference weights were trained through the "
                         "gather-equivalent sampler)")
     p.add_argument("--pose_hypotheses", type=int, default=1,
-                   help="multi-start LM hypotheses at eval (not ported "
-                        "yet: only 1)")
+                   help="multi-start LM hypotheses at eval (1 = the "
+                        "reference's single start)")
     p.add_argument("--g2sp_restrict_grid", type=int, default=None,
                    help="G2SP: drop satellite columns that can never be in "
                         "view. Default 1, except when evaluating "

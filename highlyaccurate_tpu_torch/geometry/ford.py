@@ -141,3 +141,19 @@ def qvec2angle(q0, q1, q2, q3):
     yaw = np.arctan2(2.0 * (q3 * q0 + q1 * q2),
                      -1.0 + 2.0 * (q0 * q0 + q1 * q1)) / np.pi * 180
     return roll, pitch, yaw
+
+
+def sample_layouts(R_FL) -> np.ndarray:
+    """Each sample's ``banded_project`` ``swap`` for the camera -> body
+    rotations R_FL [B, 3, 3] (a host array or tensor; a tensor on the
+    device costs one read to the host): bool [B].
+
+    A kept ground row meets the ground plane at one camera depth, so it
+    runs along the camera x axis, body direction R_FL[:, :, 0].  At heading
+    0 sat u is body east (R_FL[:, 1, 0]) and sat v body south
+    (-R_FL[:, 0, 0]), so True (the JAX layout, kernel x = sat v) where
+    |R_FL[:, 0, 0]| >= |R_FL[:, 1, 0]|: the rows run at least as much along
+    sat v as along sat u."""
+    col = (R_FL[:, :2, 0].detach().cpu().numpy() if torch.is_tensor(R_FL)
+           else np.asarray(R_FL)[:, :2, 0])
+    return np.abs(col[:, 0]) >= np.abs(col[:, 1])

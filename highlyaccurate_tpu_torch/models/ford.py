@@ -25,6 +25,10 @@ Ford keeps the reference's differences from KITTI:
   ``gt_pose[:, 0]`` as lateral, and ``coe_heading`` is 0 when
   ``rotation_range == 0``.
 
+Evaluation carries the base's multi-start sweep (``pose_hypotheses > 1``,
+the rig tiled with the features) and ``with_info`` covariance (JAX
+``ford.py:318-390, 423-451``).
+
 One repair against the JAX package: its ``banded_project`` always swaps
 the satellite axes, which suits KITTI, whose ground rows run along sat v.
 Under the Ford rig (camera forward -> body north, at a heading near zero)
@@ -36,7 +40,8 @@ zero pose, a closed form of R_FL read on the host (``kernel_layout``): the
 JAX layout wherever the rows run along sat v, where it agrees with the JAX
 package, and the unswapped one where they run along sat u.  A batch whose
 rigs disagree raises on the banded path; ``Localizer.predict`` serves such
-rigs in separate batches.
+rigs in separate batches.  A caller that must not read the rig on the
+host (an exported program) fixes the layout with ``forward``'s ``layout``.
 
 ``state_dict`` keys follow the reference: ``SatFeatureNet.*``,
 ``GrdFeatureNet.*``, ``damping``.  ``check_supported`` refuses every option
@@ -47,11 +52,11 @@ from __future__ import annotations
 
 from typing import Optional
 
-import numpy as np
 import torch
 
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import ford as fgeom
+from highlyaccurate_tpu_torch.geometry.ford import sample_layouts
 from highlyaccurate_tpu_torch.models.lm_s2gp import S2GPBase, _level_hw
 from highlyaccurate_tpu_torch.solver.updates import LMConfig
 
@@ -63,7 +68,6 @@ def check_supported(cfg: Config):
         (cfg.Optimizer != "LM", f"Optimizer={cfg.Optimizer!r}"),
         (bool(cfg.estimate_depth), "estimate_depth"),
         (bool(cfg.use_gt_depth), "use_gt_depth"),
-        (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
         (bool(cfg.using_weight), "using_weight"),
         (cfg.dropout > 0, "dropout > 0"),
         (bool(cfg.level_first), "level_first"),
@@ -82,22 +86,6 @@ def ford_rays(cfg: Config):
     models_ford.py:110-155): [(xyz [H, W, 3], mask [H, W], xyz_w)] * 4."""
     return [fgeom.grd_img2cam_ford(*_level_hw(cfg, lvl), cfg.grd_h,
                                    cfg.grd_w) for lvl in range(4)]
-
-
-def sample_layouts(R_FL) -> np.ndarray:
-    """Each sample's ``banded_project`` ``swap`` for the camera -> body
-    rotations R_FL [B, 3, 3] (a host array or tensor; a tensor on the
-    device costs one read to the host): bool [B].
-
-    A kept ground row meets the ground plane at one camera depth, so it
-    runs along the camera x axis, body direction R_FL[:, :, 0].  At heading
-    0 sat u is body east (R_FL[:, 1, 0]) and sat v body south
-    (-R_FL[:, 0, 0]), so True (the JAX layout, kernel x = sat v) where
-    |R_FL[:, 0, 0]| >= |R_FL[:, 1, 0]|: the rows run at least as much along
-    sat v as along sat u."""
-    col = (R_FL[:, :2, 0].detach().cpu().numpy() if torch.is_tensor(R_FL)
-           else np.asarray(R_FL)[:, :2, 0])
-    return np.abs(col[:, 0]) >= np.abs(col[:, 1])
 
 
 def kernel_layout(R_FL) -> bool:
@@ -136,13 +124,21 @@ class LMS2GPFord(S2GPBase):
     def _swap(self, geo: tuple) -> bool:
         return geo[3]
 
+    def _tile_geo(self, geo: tuple, P: int) -> tuple:
+        R_FL, T_FL, side_m, swap = geo
+        if torch.is_tensor(side_m) and side_m.ndim:
+            side_m = side_m.repeat_interleave(P, 0)
+        return (R_FL.repeat_interleave(P, 0), T_FL.repeat_interleave(P, 0),
+                side_m, swap)
+
     def _geo(self, R_FL, T_FL, satmap_sidelength_meters,
-             banded: bool = True):
+             banded: bool = True, layout: Optional[bool] = None):
         """The per-call geometry of ``_uv_jac``: the rig on the model's
         device, the patch side, and the kernel layout of a ``banded``
-        round (read from R_FL on the host; the gather sampler takes any mix
-        of rigs)."""
-        swap = (kernel_layout(R_FL) if banded and self.cfg.use_banded_warp
+        round (``layout`` where the caller fixes it, else read from R_FL
+        on the host; the gather sampler takes any mix of rigs)."""
+        swap = (layout if layout is not None
+                else kernel_layout(R_FL) if banded and self.cfg.use_banded_warp
                 else None)
         R_FL, T_FL = (t.to(self.device, torch.float32) for t in (R_FL, T_FL))
         return (R_FL, T_FL, satmap_sidelength_meters, swap)
@@ -150,7 +146,8 @@ class LMS2GPFord(S2GPBase):
     def forward(self, sat_map, grd_img, satmap_sidelength_meters, R_FL, T_FL,
                 mode: str = "test", init_pose: Optional[torch.Tensor] = None,
                 *, gt_pose: Optional[torch.Tensor] = None,
-                generator: torch.Generator):
+                generator, with_info: bool = False,
+                layout: Optional[bool] = None):
         """Feature extraction + unrolled solver.
 
         sat_map [B, A, A, 3], grd_img [B, H, W, 3] float32 on the model's
@@ -160,17 +157,28 @@ class LMS2GPFord(S2GPBase):
         raises ``ValueError``); satmap_sidelength_meters the satellite patch's side
         (a scalar or a
         per-sample [B] tensor); init_pose [B, 3] normalized warm start
-        (default zero); generator: the ``torch.Generator`` (on the model's
-        device) of the re-init draw, which every round makes.
+        (default zero; hypothesis 0 of a multi-start sweep); generator: the
+        ``torch.Generator`` (on the model's device) or ``PresetDraws`` of
+        the multi-start initial poses and of the re-init draw, which every
+        round makes; ``layout`` fixes the banded kernel layout
+        (``kernel_layout``'s ``swap``) instead of reading it from R_FL.
 
-        mode 'test' -> (shift_lat, shift_lon, theta) each [B];
+        mode 'test' -> (shift_lat, shift_lon, theta) each [B], and with
+        ``with_info`` their pose covariance [B, 3, 3] (normalized, pose
+        order u = lateral, v = longitudinal) appended;
         mode 'trajectory' -> the same three, each [B, N_iters, levels];
         mode 'train' -> ``LossDiagnostics`` of ``loss_func`` against
         ``gt_pose`` [B, 3] (normalized (shift_u = lateral, shift_v =
         longitudinal, heading)), differentiable with respect to the
         parameters.
         """
-        geo = self._geo(R_FL, T_FL, satmap_sidelength_meters)
+        geo = self._geo(R_FL, T_FL, satmap_sidelength_meters, layout=layout)
+        if mode == "test":
+            # Ford: u is lateral, v longitudinal
+            pose, cov = self._test(sat_map, grd_img, init_pose, generator,
+                                   with_info, geo)
+            out = (pose[:, 0], pose[:, 1], pose[:, 2])
+            return out + (cov,) if with_info else out
         traj = self._trajectory(sat_map, grd_img, mode, init_pose, gt_pose,
                                 generator, geo)
         # Ford: u is lateral, v longitudinal

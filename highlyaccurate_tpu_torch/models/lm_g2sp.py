@@ -34,6 +34,15 @@ slot takes one of two samplers, chosen per slot as JAX chooses per level
   Jacobian and ``lm_update`` without normalization.  A 32-row ground
   input, whose coarse map has 4 rows, mixes the two within one forward.
 
+Evaluation (mode ``"test"``) can also run the multi-start sweep
+(``pose_hypotheses > 1``, ``LMG2SP.hypotheses``: the hypotheses ride the
+batch axis through the same per-slot samplers, then the normalized
+finest-level residual over the shared valid support picks one) and, with
+``with_info``, return the covariance of the solution (``_pose_info``: the
+gather sampler over the whole finest satellite grid, unnormalized
+residual, all-ones mask; no hand kernel).  Both score through
+``_project_grd_to_map``, the gather projection of JAX ``:90``.
+
 Training scores the trajectory with ``loss_func`` method 0.  The samples
 stay in line order; the satellite target is passed as a transposed view of
 the same columns, made once per level per forward (outside the rounds), so
@@ -55,7 +64,10 @@ from torch import nn
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import kitti as geom
 from highlyaccurate_tpu_torch.losses.losses import loss_func
-from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw, feature_dtype
+from highlyaccurate_tpu_torch.models.lm_s2gp import (_level_hw,
+                                                    feature_dtype,
+                                                    multi_starts,
+                                                    normalized_cost)
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
                                                       grid_sample_derivs)
@@ -64,9 +76,12 @@ from highlyaccurate_tpu_torch.ops.projline import (pack_projline_coefs,
                                                    projline_sample,
                                                    projline_sample_forward,
                                                    projline_supported)
-from highlyaccurate_tpu_torch.solver.updates import (LMConfig, lm_update,
+from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
+                                                     lm_information,
+                                                     lm_update,
                                                      lm_update_implicit_pixel,
-                                                     lm_update_pixel_moments)
+                                                     lm_update_pixel_moments,
+                                                     pose_covariance)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 SLOT_CHANNELS = (256, 128, 64, 16)  # VGGUnet feature channels per slot
@@ -80,7 +95,6 @@ def check_supported(cfg: Config):
         (cfg.proj != "geo", f"proj={cfg.proj!r}"),
         (cfg.Optimizer != "LM", f"Optimizer={cfg.Optimizer!r}"),
         (bool(cfg.using_weight), "using_weight"),
-        (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
     ]
     for bad, name in refused:
         if bad:
@@ -127,7 +141,8 @@ class LMG2SP(nn.Module):
         # per slot: the first satellite column j0 and the ground points of
         # the kept columns in line order [V, A, 4]; rows 0 and 1 fix each
         # line (its points are affine in the row index); with
-        # use_implicit_lm=0 a gather slot's whole grid [A, A, 4]
+        # use_implicit_lm=0 a gather slot's whole grid [A, A, 4], which the
+        # finest slot keeps in any case (multi-start score, covariance)
         self._col_start = {}
         for slot in self._slots:
             A = cfg.sat_size >> (3 - slot)
@@ -144,7 +159,8 @@ class LMG2SP(nn.Module):
                 np.ascontiguousarray(xyz1[0])), persistent=False)
             self.register_buffer(f"dx_{slot}", torch.from_numpy(
                 np.ascontiguousarray(xyz1[1] - xyz1[0])), persistent=False)
-            if not (self._projline[slot] or cfg.use_implicit_lm):
+            if (not (self._projline[slot] or cfg.use_implicit_lm)
+                    or slot == self._slots[-1]):
                 self.register_buffer(f"grid_{slot}", torch.from_numpy(
                     geom.warp_sat2real(A)), persistent=False)
         self.to(dev)
@@ -177,8 +193,7 @@ class LMG2SP(nn.Module):
         cfg = self.cfg
         Hg, Wg = grd_map.shape[1:3]
         A = target.shape[2]
-        ranges = (cfg.rotation_range, cfg.shift_range_lat,
-                  cfg.shift_range_lon)
+        ranges = self._ranges()
         if not self._projline[slot]:
             if not cfg.use_implicit_lm:
                 uv, duv, _ = geom.g2sp_uv_jac(
@@ -217,6 +232,65 @@ class LMG2SP(nn.Module):
         return lm_update_implicit_pixel(pose, out, dx, dy, target, duv,
                                         self.damping, self.lm_cfg)
 
+    def _ranges(self):
+        cfg = self.cfg
+        return (cfg.rotation_range, cfg.shift_range_lat, cfg.shift_range_lon)
+
+    def _project_grd_to_map(self, grd_feat, pose, camera_k):
+        """The ground features [B, A, A, C] of the finest slot gathered at
+        every satellite pixel of its grid at ``pose`` (no column
+        restriction), and the in-front mask [B, A, A] (port of JAX
+        ``_project_grd_to_map`` with ``with_jac=False``)."""
+        cfg = self.cfg
+        Hg, Wg = grd_feat.shape[1:3]
+        uv, _, mask = geom.g2sp_uv_jac(
+            pose, getattr(self, f"grid_{self._slots[-1]}"), camera_k, Hg, Wg,
+            cfg.grd_h, cfg.grd_w, *self._ranges())
+        return grid_sample(grd_feat, uv)[0], mask
+
+    def hypotheses(self, sat_feats, grd_feats, camera_k, init_pose,
+                   generator):
+        """The multi-start sweep (JAX ``_multi_hypothesis_from_feats`` up
+        to its argmin) on the feature pyramids of B samples:
+        ``pose_hypotheses`` = P initial poses per sample
+        (``multi_starts``) ride the batch axis through the evaluation
+        rounds, each slot on its own sampler (K4, K6 or the gather path,
+        as a single start), then each final pose is scored by the
+        normalized residual of the finest level, the projected ground
+        features against the satellite features under the in-front mask
+        (``normalized_cost``).  camera_k [B, 3, 3].  Returns the final
+        poses [B, P, 3] and the costs [B, P]."""
+        cfg = self.cfg
+        B, P = camera_k.shape[0], cfg.pose_hypotheses
+        pose0 = multi_starts(generator, B, P, init_pose, cfg.rotation_range,
+                             self.device)
+        sat_t = [f.repeat_interleave(P, 0) for f in sat_feats]
+        grd_t = [f.repeat_interleave(P, 0) for f in grd_feats]
+        k_t = camera_k.repeat_interleave(P, 0)
+        final = self._run_rounds(pose0, sat_t, grd_t, k_t,
+                                 train=False)[:, -1, -1]
+        g_proj, m = self._project_grd_to_map(grd_t[-1], final, k_t)
+        cost = normalized_cost(g_proj, sat_t[-1] * m[..., None])
+        return final.reshape(B, P, 3), cost.reshape(B, P)
+
+    def _pose_info(self, sat_feats, grd_feats, pose, camera_k):
+        """[B, 3, 3] pose covariance (normalized pose order) at ``pose``
+        from the G2SP objective's Gauss-Newton information (JAX
+        ``_pose_info``): the gather sampler's values and derivatives over
+        the whole finest satellite grid, the unnormalized residual
+        grd_proj - sat with an all-ones mask, all three DoF."""
+        cfg = self.cfg
+        A = sat_feats[-1].shape[1]
+        Hg, Wg = grd_feats[-1].shape[1:3]
+        uv, duv, _ = geom.g2sp_uv_jac(
+            pose, getattr(self, f"grid_{self._slots[-1]}"), camera_k, Hg, Wg,
+            cfg.grd_h, cfg.grd_w, *self._ranges())
+        out, dx, dy = grid_sample_derivs(grd_feats[-1], uv)
+        ones = torch.ones(1, A, A, dtype=torch.float32, device=self.device)
+        hess, rss, n_res = lm_information(out, dx, dy, sat_feats[-1], ones,
+                                          duv, (0, 1, 2), normalize=False)
+        return pose_covariance(hess, rss, n_res, (0, 1, 2))
+
     def _run_rounds(self, pose0, sat_feats, grd_feats, camera_k,
                     train: bool):
         """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]."""
@@ -244,21 +318,31 @@ class LMG2SP(nn.Module):
 
     def forward(self, sat_map, grd_img, camera_k, mode: str = "test",
                 init_pose: Optional[torch.Tensor] = None, *,
-                gt_pose: Optional[torch.Tensor] = None):
+                gt_pose: Optional[torch.Tensor] = None, generator=None,
+                with_info: bool = False):
         """Feature extraction + unrolled solver.
 
         sat_map [B, A, A, 3], grd_img [B, H, W, 3] float32 and camera_k
         [B, 3, 3] (the intrinsics of the grd_h x grd_w input) on the
         model's device; init_pose [B, 3] normalized warm start (default
-        zero).  G2SP has no re-init, so no generator.
+        zero; hypothesis 0 of a multi-start sweep).  G2SP has no re-init:
+        the ``generator`` (``torch.Generator`` or ``PresetDraws``) serves
+        only the multi-start initial poses of ``pose_hypotheses > 1``.
 
-        mode 'test' -> (shift_lat, shift_lon, theta) each [B];
+        mode 'test' -> (shift_lat, shift_lon, theta) each [B], and with
+        ``with_info`` their pose covariance [B, 3, 3] (normalized, pose
+        order) appended;
         mode 'trajectory' -> the same three, each [B, N_iters, levels];
         mode 'train' -> ``LossDiagnostics`` of ``loss_func`` against
         ``gt_pose`` [B, 3], differentiable with respect to the parameters.
         Only the two evaluation modes run without autograd.
         """
-        if mode not in ("test", "trajectory", "train"):
+        if mode == "test":
+            pose, cov = self._test(sat_map, grd_img, camera_k, init_pose,
+                                   generator, with_info)
+            out = (pose[:, 1], pose[:, 0], pose[:, 2])
+            return out + (cov,) if with_info else out
+        if mode not in ("trajectory", "train"):
             raise NotImplementedError(f"mode={mode!r}")
         train = mode == "train"
         if train and self.cfg.loss_method != 0:
@@ -270,6 +354,30 @@ class LMG2SP(nn.Module):
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             return self._forward(sat_map, grd_img, camera_k, mode, init_pose,
                                  gt_pose)
+
+    @torch.no_grad()
+    def _test(self, sat_map, grd_img, camera_k, init_pose, generator,
+              with_info: bool):
+        """Mode 'test': the final pose [B, 3] (pose order) of the single
+        start or, with ``pose_hypotheses > 1``, of the winning hypothesis;
+        with ``with_info`` also its covariance [B, 3, 3], else None."""
+        B = sat_map.shape[0]
+        camera_k = camera_k.to(torch.float32)
+        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        if self.cfg.pose_hypotheses > 1:
+            final, cost = self.hypotheses(sat_feats, grd_feats, camera_k,
+                                          init_pose, generator)
+            pose = final[torch.arange(B, device=final.device),
+                         cost.argmin(1)]
+        else:
+            pose0 = (torch.zeros(B, 3, dtype=torch.float32,
+                                 device=self.device)
+                     if init_pose is None else init_pose.to(torch.float32))
+            pose = self._run_rounds(pose0, sat_feats, grd_feats, camera_k,
+                                    train=False)[:, -1, -1]
+        cov = (self._pose_info(sat_feats, grd_feats, pose, camera_k)
+               if with_info else None)
+        return pose, cov
 
     def _forward(self, sat_map, grd_img, camera_k, mode, init_pose, gt_pose):
         cfg = self.cfg
@@ -283,9 +391,6 @@ class LMG2SP(nn.Module):
         shift_lats, shift_lons, thetas = traj[..., 1], traj[..., 0], traj[..., 2]
         if mode == "trajectory":
             return shift_lats, shift_lons, thetas
-        if mode == "test":
-            return (shift_lats[:, -1, -1], shift_lons[:, -1, -1],
-                    thetas[:, -1, -1])
         gt = gt_pose.to(torch.float32)
         return loss_func(cfg.loss_method, shift_lats, shift_lons, thetas,
                          gt[:, 1], gt[:, 0], gt[:, 2], cfg.coe_shift_lat,

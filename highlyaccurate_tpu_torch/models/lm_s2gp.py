@@ -25,6 +25,14 @@ round takes one of the JAX package's branches (``S2GPBase._solver_round``):
   dtype, then ``lm_update_implicit_pixel_norm`` or, with
   ``use_implicit_lm=0``, ``lm_update`` on the materialized Jacobian.
 
+Evaluation (mode ``"test"``) can also run the multi-start sweep
+(``pose_hypotheses > 1``, ``S2GPBase.hypotheses``: every hypothesis rides
+the batch axis through the same rounds, so K1 launches at batch B x P, and
+the one with the smallest normalized finest-level residual wins) and, with
+``with_info``, return the pose covariance of the solution
+(``S2GPBase._pose_info``: one gather projection at the finest level and
+``lm_information`` / ``pose_covariance``; no hand kernel).
+
 Training scores the trajectory with ``loss_func`` method 0.  The
 satellite map goes to the banded kernels as a transposed view (kernel y =
 sat u, kernel x = sat v).  K1 reads a map cast once per forward to the map
@@ -57,8 +65,9 @@ from highlyaccurate_tpu_torch.ops.banded_warp import (banded_moments,
 from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
                                                       grid_sample_derivs)
 from highlyaccurate_tpu_torch.solver.updates import (
-    LMConfig, lm_update, lm_update_from_moments, lm_update_implicit,
-    lm_update_implicit_pixel_norm)
+    LMConfig, lm_information, lm_update, lm_update_from_moments,
+    lm_update_implicit, lm_update_implicit_pixel_norm, pose_covariance,
+    uniform_draws)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
@@ -73,7 +82,6 @@ def check_supported(cfg: Config):
         (bool(cfg.use_gt_depth), "use_gt_depth"),
         (cfg.dropout > 0, "dropout > 0"),
         (bool(cfg.level_first), "level_first"),
-        (cfg.pose_hypotheses > 1, "pose_hypotheses > 1"),
     ]
     for bad, name in refused:
         if bad:
@@ -173,6 +181,50 @@ def level_slots(cfg: Config):
     return LEVEL_SLOTS[cfg.level]
 
 
+def draw_starts(generator, B: int, P: int, device) -> torch.Tensor:
+    """The [B, P, 3] uniform [-1, 1) numbers of the multi-start initial
+    poses, drawn from the forward's generator before the rounds (JAX draws
+    them from ``fold_in(make_rng("lm"), 0x5EED)``, which torch cannot
+    reproduce; a test feeds both the same starts through this one
+    function)."""
+    return uniform_draws(generator, (B, P, 3), device)
+
+
+def multi_starts(generator, B: int, P: int, init_pose, rotation_range,
+                 device) -> torch.Tensor:
+    """The [B * P, 3] initial poses of the multi-start sweep, sample-major
+    (JAX ``multi_hypothesis_test``): hypothesis 0 at zero or at
+    ``init_pose`` [B, 3], the others from ``draw_starts``; the heading 0
+    where ``rotation_range`` is 0."""
+    starts = draw_starts(generator, B, P, device).clone()
+    starts[:, 0] = 0.0 if init_pose is None else init_pose.to(torch.float32)
+    if rotation_range == 0:
+        starts[..., 2] = 0.0
+    return starts.reshape(B * P, 3)
+
+
+def normalized_cost(a, b) -> torch.Tensor:
+    """The multi-start score of each sample [N]: the squared distance
+    between a and b [N, ...] (already masked to the same support), each
+    flattened and divided by its norm floored at 1e-6, in float32."""
+    a = a.reshape(a.shape[0], -1).to(torch.float32)
+    b = b.reshape(b.shape[0], -1).to(torch.float32)
+    na = torch.sqrt(torch.clamp_min((a * a).sum(-1), 1e-12))
+    nb = torch.sqrt(torch.clamp_min((b * b).sum(-1), 1e-12))
+    return ((a / na[:, None] - b / nb[:, None]) ** 2).sum(-1)
+
+
+def eval_draws_per_image(cfg: Config, lm_cfg: LMConfig) -> int:
+    """How many uniform numbers one image's evaluation forward draws: its
+    multi-start initial poses, then two per round of the re-init (only a
+    solve over all three DoF with ``reinit`` draws), each for every
+    hypothesis.  ``PresetDraws`` holds that many per image."""
+    P = cfg.pose_hypotheses
+    rounds = cfg.N_iters * len(LEVEL_SLOTS[cfg.level])
+    reinit = lm_cfg.reinit and len(lm_cfg.active_dims) == 3
+    return (3 * P if P > 1 else 0) + (2 * P * rounds if reinit else 0)
+
+
 class S2GPBase(nn.Module):
     """What the KITTI S2GP and Ford models share: two VGGUnet branches, the
     solver rounds over the bottom half of the ground rows on the banded
@@ -188,7 +240,8 @@ class S2GPBase(nn.Module):
         [H, W], ...)) the buffers of the kept rows: ``mask_{slot}``, and
         ``rows01_{slot}`` (their u = 0, 1 points [V, 2, 3]) for the banded
         path or ``xyz_{slot}`` (every point [V, W, 3]) for the gather
-        path."""
+        path, and the finest slot's ``xyz`` in any case (the multi-start
+        score and the covariance gather there)."""
         self.cfg = cfg
         dev = resolve_device(device)
         self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
@@ -200,12 +253,14 @@ class S2GPBase(nn.Module):
         for slot in self._slots:
             xyz, mask = rays[slot][:2]
             half = xyz.shape[0] // 2
-            name, points = (("rows01", xyz[half:, :2])
-                            if cfg.use_banded_warp else ("xyz", xyz[half:]))
-            self.register_buffer(f"{name}_{slot}", torch.from_numpy(
-                np.ascontiguousarray(points)), persistent=False)
-            self.register_buffer(f"mask_{slot}", torch.from_numpy(
-                np.ascontiguousarray(mask[half:])), persistent=False)
+            buffers = {"mask": mask[half:]}
+            if cfg.use_banded_warp:
+                buffers["rows01"] = xyz[half:, :2]
+            if not cfg.use_banded_warp or slot == self._slots[-1]:
+                buffers["xyz"] = xyz[half:]
+            for name, a in buffers.items():
+                self.register_buffer(f"{name}_{slot}", torch.from_numpy(
+                    np.ascontiguousarray(a)), persistent=False)
         self.to(dev)
         self.eval()
 
@@ -227,6 +282,10 @@ class S2GPBase(nn.Module):
     def _swap(self, geo: tuple) -> bool:
         """The kernel layout of the batch (``banded_project``'s ``swap``)."""
         raise NotImplementedError
+
+    def _tile_geo(self, geo: tuple, P: int) -> tuple:
+        """``geo`` for the batch with each sample repeated P times."""
+        return geo
 
     def _line_uv(self, pose, slot: int, A: int, geo: tuple):
         """(uv01 [B, V, 2, 2], duv01 [B, V, 2, 2, 3], swap) of the kept
@@ -315,6 +374,77 @@ class S2GPBase(nn.Module):
         return torch.stack(traj, dim=1).reshape(pose0.shape[0], cfg.N_iters,
                                                 len(self._slots), 3)
 
+    def hypotheses(self, sat_feats, grd_feats, init_pose, generator,
+                   geo: tuple = ()):
+        """The multi-start sweep (JAX ``multi_hypothesis_test`` up to its
+        argmin) on the feature pyramids of B samples: ``pose_hypotheses``
+        = P initial poses per sample (``multi_starts``) ride the batch axis
+        through the rounds of evaluation (K1 at batch B x P on the default
+        path), then each final pose is scored by the normalized residual
+        of the finest level's kept rows under the ray mask
+        (``normalized_cost``).  Returns the final poses [B, P, 3] and the
+        costs [B, P]."""
+        cfg = self.cfg
+        B, P = sat_feats[0].shape[0], cfg.pose_hypotheses
+        pose0 = multi_starts(generator, B, P, init_pose, cfg.rotation_range,
+                             self.device)
+        sat_t = [f.repeat_interleave(P, 0) for f in sat_feats]
+        grd_t = [f.repeat_interleave(P, 0) for f in grd_feats]
+        geo_t = self._tile_geo(geo, P)
+        final = self._run_rounds(pose0, sat_t, grd_t, generator, False,
+                                 geo_t)[:, -1, -1]
+        # the finest slot's kept pixels gathered at the final poses (JAX
+        # _project with with_jac=False, row_start = H/2), both sides masked
+        slot = self._slots[-1]
+        uv = self._uv_jac(final, getattr(self, f"xyz_{slot}"),
+                          sat_t[-1].shape[1], geo_t, jac=False)[0]
+        mask = getattr(self, f"mask_{slot}")[:, :, None]
+        H = grd_t[-1].shape[1]
+        cost = normalized_cost(grid_sample(sat_t[-1], uv)[0] * mask,
+                               grd_t[-1][:, H // 2:] * mask)
+        return final.reshape(B, P, 3), cost.reshape(B, P)
+
+    def _pose_info(self, sat_feats, grd_feats, pose, geo: tuple = ()):
+        """[B, 3, 3] pose covariance (normalized pose order) at ``pose``
+        from the solver's Gauss-Newton information (JAX ``_pose_info``):
+        the gather sampler's values and derivatives at the finest slot's
+        kept pixels, ``lm_information`` with the normalized residual, and
+        ``pose_covariance`` over ``active_pose_dims``."""
+        cfg = self.cfg
+        slot = self._slots[-1]
+        uv, duv = self._uv_jac(pose, getattr(self, f"xyz_{slot}"),
+                               sat_feats[-1].shape[1], geo)
+        out, dx, dy = grid_sample_derivs(sat_feats[-1], uv)
+        H = grd_feats[-1].shape[1]
+        hess, rss, n_res = lm_information(
+            out, dx, dy, grd_feats[-1][:, H // 2:],
+            getattr(self, f"mask_{slot}")[None], duv, cfg.active_pose_dims,
+            normalize=True)
+        return pose_covariance(hess, rss, n_res, cfg.active_pose_dims)
+
+    @torch.no_grad()
+    def _test(self, sat_map, grd_img, init_pose, generator, with_info: bool,
+              geo: tuple = ()):
+        """Mode 'test': the final pose [B, 3] (pose order) of the single
+        start or, with ``pose_hypotheses > 1``, of the winning hypothesis;
+        with ``with_info`` also its covariance [B, 3, 3], else None."""
+        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        B = sat_map.shape[0]
+        if self.cfg.pose_hypotheses > 1:
+            final, cost = self.hypotheses(sat_feats, grd_feats, init_pose,
+                                          generator, geo)
+            pose = final[torch.arange(B, device=final.device),
+                         cost.argmin(1)]
+        else:
+            pose0 = (torch.zeros(B, 3, dtype=torch.float32,
+                                 device=self.device)
+                     if init_pose is None else init_pose.to(torch.float32))
+            pose = self._run_rounds(pose0, sat_feats, grd_feats, generator,
+                                    False, geo)[:, -1, -1]
+        cov = (self._pose_info(sat_feats, grd_feats, pose, geo)
+               if with_info else None)
+        return pose, cov
+
     @torch.no_grad()
     def _project_at_pose(self, sat_map, grd_img, poses, geo: tuple = ()):
         """Per level (sat_feat, grd_feat, projection at each of ``poses``):
@@ -335,9 +465,10 @@ class S2GPBase(nn.Module):
 
     def _trajectory(self, sat_map, grd_img, mode, init_pose, gt_pose,
                     generator, geo=()):
-        """Checks ``mode``, extracts the features and runs the rounds (with
-        autograd only in training) -> the poses [B, N_iters, L, 3]."""
-        if mode not in ("test", "trajectory", "train"):
+        """Modes 'trajectory' and 'train': checks ``mode``, extracts the
+        features and runs the single-start rounds (with autograd only in
+        training) -> the poses [B, N_iters, L, 3]."""
+        if mode not in ("trajectory", "train"):
             raise NotImplementedError(f"mode={mode!r}")
         train = mode == "train"
         if train and self.cfg.loss_method != 0:
@@ -363,9 +494,6 @@ class S2GPBase(nn.Module):
         cfg = self.cfg
         if mode == "trajectory":
             return shift_lats, shift_lons, thetas
-        if mode == "test":
-            return (shift_lats[:, -1, -1], shift_lons[:, -1, -1],
-                    thetas[:, -1, -1])
         coe_heading = 0.0 if cfg.rotation_range == 0 else cfg.coe_heading
         return loss_func(cfg.loss_method, shift_lats, shift_lons, thetas,
                          gt_lat, gt_lon, gt_theta, cfg.coe_shift_lat,
@@ -404,21 +532,32 @@ class LMS2GP(S2GPBase):
     def forward(self, sat_map, grd_img, mode: str = "test",
                 init_pose: Optional[torch.Tensor] = None, *,
                 gt_pose: Optional[torch.Tensor] = None,
-                generator: torch.Generator):
+                generator, with_info: bool = False):
         """Feature extraction + unrolled solver.
 
         sat_map [B, A, A, 3], grd_img [B, H, W, 3] float32 on the model's
-        device; init_pose [B, 3] normalized warm start (default zero);
-        generator: the ``torch.Generator`` (on the model's device) of the
+        device; init_pose [B, 3] normalized warm start (default zero; with
+        ``pose_hypotheses > 1`` hypothesis 0); generator: the
+        ``torch.Generator`` (on the model's device) or ``PresetDraws`` of
+        the multi-start initial poses, drawn first, and of the
         out-of-range re-init draw, which every round makes.
 
-        mode 'test' -> (shift_lat, shift_lon, theta) each [B];
-        mode 'trajectory' -> the same three, each [B, N_iters, levels];
+        mode 'test' -> (shift_lat, shift_lon, theta) each [B], and with
+        ``with_info`` their pose covariance [B, 3, 3] (normalized units,
+        pose order, zero on frozen DoFs) appended;
+        mode 'trajectory' -> the same three, each [B, N_iters, levels]
+        (always the single start);
         mode 'train' -> ``LossDiagnostics`` of ``loss_func`` against
         ``gt_pose`` [B, 3] (normalized (shift_u, shift_v, heading)),
         differentiable with respect to the parameters.  Only the two
         evaluation modes run without autograd.
         """
+        if mode == "test":
+            pose, cov = self._test(sat_map, grd_img, init_pose, generator,
+                                   with_info)
+            # KITTI: u is longitudinal, v lateral
+            out = (pose[:, 1], pose[:, 0], pose[:, 2])
+            return out + (cov,) if with_info else out
         traj = self._trajectory(sat_map, grd_img, mode, init_pose, gt_pose,
                                 generator)
         # KITTI: u is longitudinal, v lateral

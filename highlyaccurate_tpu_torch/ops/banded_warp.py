@@ -19,7 +19,12 @@ Each kernel's wrapper launches its CUDA kernel (``csrc/banded_moments.cu``,
 ``csrc/banded_sampler.cu``) on CUDA tensors, or raises; on CPU tensors it
 runs the plain PyTorch version beside it, which the tests hold to the JAX
 kernel.  ``banded_moments.launches``, ``banded_sample.launches`` (K2) and
-``banded_sample_backward.launches`` (K3) count kernel launches.
+``banded_sample_backward.launches`` (K3) count kernel launches.  The
+forward launches, K1 and K2, are ``torch.library`` custom ops
+(``highlyaccurate_tpu_torch::banded_moments``, ``::banded_sample``) whose
+body is the ctypes launch and whose fake function gives the output shapes,
+so that ``torch.export`` traces a program that launches the kernels (it
+cannot trace through ctypes); they register when this module is imported.
 """
 
 from __future__ import annotations
@@ -325,6 +330,20 @@ def _launch(sat_k, grd, mask, coefs, bf16_map: bool):
     return out
 
 
+@torch.library.custom_op(
+    "highlyaccurate_tpu_torch::banded_moments", mutates_args=(),
+    schema="(Tensor sat_k, Tensor grd, Tensor mask, Tensor coefs, "
+           "bool bf16_map) -> Tensor")
+def _banded_moments_op(sat_k, grd, mask, coefs, bf16_map):
+    return _launch(sat_k, grd, mask, coefs, bf16_map)
+
+
+@_banded_moments_op.register_fake
+def _(sat_k, grd, mask, coefs, bf16_map):
+    return sat_k.new_empty(sat_k.shape[0], mask.shape[0], 3, _MOM_LANES,
+                           dtype=torch.float32)
+
+
 def moments_from_coefs(sat_k, grd, mask, coefs, *, bf16_map: bool):
     """K1 on packed row coefficients (``pack_row_coefs``): the CUDA kernel
     for CUDA tensors (or raises), the plain version for CPU tensors.
@@ -333,7 +352,7 @@ def moments_from_coefs(sat_k, grd, mask, coefs, *, bf16_map: bool):
         return moments_from_coefs_reference(sat_k, grd, mask, coefs)
     _check(sat_k.device.type == "cuda", "banded_moments",
            f"unsupported device {sat_k.device}")
-    return _launch(sat_k, grd, mask, coefs, bf16_map)
+    return _banded_moments_op(sat_k, grd, mask, coefs, bf16_map)
 
 
 def banded_moments(sat_k, grd, mask, uv0, uv1, *, RB: int, bf16_map: bool):
@@ -373,8 +392,17 @@ def banded_sample_forward(sat_k, coefs, W: int, *, with_dxy: bool):
     """
     if sat_k.device.type == "cpu":
         return banded_sample_reference(sat_k, coefs, W, with_dxy)
+    _check(sat_k.device.type == "cuda", "banded_sample",
+           f"unsupported device {sat_k.device}")
+    return tuple(_banded_sample_op(sat_k, coefs, W, with_dxy))
+
+
+@torch.library.custom_op(
+    "highlyaccurate_tpu_torch::banded_sample", mutates_args=(),
+    schema="(Tensor sat_k, Tensor coefs, int W, bool with_dxy) -> Tensor[]")
+def _banded_sample_op(sat_k, coefs, W, with_dxy):
+    """Validate and launch K2 on the current stream."""
     k = "banded_sample"
-    _check(sat_k.device.type == "cuda", k, f"unsupported device {sat_k.device}")
     B, A, _, C = sat_k.shape
     V = coefs.shape[1]
     _check_inputs(k, coefs, B, V, W, C, sat_k)
@@ -389,7 +417,14 @@ def banded_sample_forward(sat_k, coefs, W: int, *, with_dxy: bool):
          sat_k.stride(0), sat_k.stride(1), sat_k.stride(2),
          int(sat_k.dtype == torch.bfloat16))
     banded_sample.launches += 1
-    return outs
+    return list(outs)
+
+
+@_banded_sample_op.register_fake
+def _(sat_k, coefs, W, with_dxy):
+    B, _, _, C = sat_k.shape
+    return [sat_k.new_empty(B, coefs.shape[1], W, C, dtype=torch.float32)
+            for _ in range(4 if with_dxy else 3)]
 
 
 def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int):

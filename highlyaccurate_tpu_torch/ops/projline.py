@@ -24,7 +24,10 @@ tensors, or raises; on CPU tensors it runs the plain PyTorch version beside
 it, which the tests hold to the JAX kernel.
 ``projline_sample_forward.launches`` (K4),
 ``projline_sample_backward.launches`` (K5) and ``projline_pixmom.launches``
-(K6) count kernel launches.
+(K6) count kernel launches.  K4's forward and K6 launch through
+``torch.library`` custom ops (``highlyaccurate_tpu_torch::projline_sample``,
+``::projline_pixmom``), as K1 and K2 do (``ops/banded_warp.py``), so that
+an exported program launches them.
 """
 
 from __future__ import annotations
@@ -197,9 +200,18 @@ def projline_sample_forward(grd_k, coefs, W: int, *, with_dxy: bool):
     """
     if grd_k.device.type == "cpu":
         return projline_sample_reference(grd_k, coefs, W, with_dxy)
+    _check(grd_k.device.type == "cuda", "projline_sample",
+           f"unsupported device {grd_k.device}")
+    return tuple(_projline_sample_op(grd_k, coefs, W, with_dxy))
+
+
+@torch.library.custom_op(
+    "highlyaccurate_tpu_torch::projline_sample", mutates_args=(),
+    schema="(Tensor grd_k, Tensor coefs, int W, bool with_dxy) -> Tensor[]")
+def _projline_sample_op(grd_k, coefs, W, with_dxy):
+    """Validate and launch K4 on the current stream."""
     k = "projline_sample"
     dev = grd_k.device
-    _check(dev.type == "cuda", k, f"unsupported device {dev}")
     B, AY, AX, C = grd_k.shape
     V = coefs.shape[1]
     _check_coefs(k, coefs, B, V, W, C)
@@ -219,7 +231,14 @@ def projline_sample_forward(grd_k, coefs, W: int, *, with_dxy: bool):
          grd_k.stride(0), grd_k.stride(1), grd_k.stride(2),
          int(grd_k.dtype == torch.bfloat16))
     projline_sample_forward.launches += 1
-    return outs
+    return list(outs)
+
+
+@_projline_sample_op.register_fake
+def _(grd_k, coefs, W, with_dxy):
+    B, _, _, C = grd_k.shape
+    return [grd_k.new_empty(B, coefs.shape[1], W, C, dtype=torch.float32)
+            for _ in range(4 if with_dxy else 3)]
 
 
 projline_sample_forward.launches = 0
@@ -381,8 +400,20 @@ def projline_pixmom(grd_map, tgt, coefs, W: int):
            f"tgt must be [{B}, {V}, {W}, {C}], got {tuple(tgt.shape)}")
     if grd_k.device.type == "cpu":
         return projline_pixmom_reference(grd_k, tgt, coefs, W)
+    _check(grd_k.device.type == "cuda", k,
+           f"unsupported device {grd_k.device}")
+    return _projline_pixmom_op(grd_k, tgt, coefs, W)
+
+
+@torch.library.custom_op(
+    "highlyaccurate_tpu_torch::projline_pixmom", mutates_args=(),
+    schema="(Tensor grd_k, Tensor tgt, Tensor coefs, int W) -> Tensor")
+def _projline_pixmom_op(grd_k, tgt, coefs, W):
+    """Validate and launch K6 on the current stream."""
+    k = "projline_pixmom"
     dev = grd_k.device
-    _check(dev.type == "cuda", k, f"unsupported device {dev}")
+    B, AY, AX, C = grd_k.shape
+    V = coefs.shape[1]
     _check(coefs.device == dev and tgt.device == dev, k,
            f"coefs on {coefs.device}, tgt on {tgt.device}, map on {dev}")
     # the kernel loads 8 channels at a time, 16 bytes of map, 32 of target
@@ -404,6 +435,12 @@ def projline_pixmom(grd_map, tgt, coefs, W: int):
          *tgt.stride()[:3])
     projline_pixmom.launches += 1
     return pm
+
+
+@_projline_pixmom_op.register_fake
+def _(grd_k, tgt, coefs, W):
+    return grd_k.new_empty(grd_k.shape[0], coefs.shape[1], W,
+                           len(PIXMOM_IDX), dtype=torch.float32)
 
 
 projline_pixmom.launches = 0

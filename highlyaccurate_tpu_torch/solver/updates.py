@@ -10,13 +10,19 @@ pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
 solve runs in float32 whatever the feature dtype.  The contractions are
 written as broadcast products and sums rather than ``einsum`` so that no
 matrix product (and hence no TF32 mode) is involved on the GPU.  The
-out-of-range re-init draws from an explicit ``torch.Generator``; it gives
-other numbers than the JAX package's keys for the same seed.
+out-of-range re-init draws from an explicit ``torch.Generator``, or from
+numbers drawn ahead (``PresetDraws``, the input of an exported program); it
+gives other numbers than the JAX package's keys for the same seed.
+
+``lm_information`` and ``pose_covariance`` (port of ``:623-698``) give the
+pose covariance at the solution from the same per-pixel moments as the
+gather path's update.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+import math
+from typing import NamedTuple, Union
 
 import torch
 
@@ -44,6 +50,40 @@ class LMConfig(NamedTuple):
     normalize: bool = True
 
 
+class PresetDraws:
+    """Uniform numbers in [-1, 1) drawn ahead of a forward, handed out in
+    the order the forward asks for them: it stands where a
+    ``torch.Generator`` goes, so that the caller fixes the numbers (an
+    exported program takes them as an input tensor, since it cannot take a
+    generator).  ``numbers`` is flat; ``used`` counts what was taken."""
+
+    def __init__(self, numbers: torch.Tensor):
+        self.numbers = numbers
+        self.used = 0
+
+    def take(self, shape) -> torch.Tensor:
+        n = math.prod(shape)
+        if self.used + n > self.numbers.shape[0]:
+            raise ValueError(f"PresetDraws: {self.numbers.shape[0]} numbers "
+                             f"cannot give {self.used} + {n}")
+        out = self.numbers[self.used:self.used + n].reshape(shape)
+        self.used += n
+        return out
+
+
+Draws = Union[torch.Generator, PresetDraws]
+
+
+def uniform_draws(generator: Draws, shape, device) -> torch.Tensor:
+    """float32 numbers of ``shape``, uniform in [-1, 1): the next ones of a
+    ``PresetDraws``, or new ones from a ``torch.Generator`` on
+    ``device``."""
+    if isinstance(generator, PresetDraws):
+        return generator.take(shape)
+    return torch.rand(shape, generator=generator, dtype=torch.float32,
+                      device=device) * 2.0 - 1.0
+
+
 def compute_damping(damping_param, cfg: LMConfig, n_active: int,
                     device=None):
     """Per-DoF damping vector [n_active] (float32).
@@ -64,13 +104,13 @@ def compute_damping(damping_param, cfg: LMConfig, n_active: int,
 
 
 def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
-                      generator: torch.Generator):
+                      generator: Draws):
     """Damped solve on the active-DoF system, then the out-of-range uniform
     re-init of the shifts (reference models_kitti.py:1005-1033).
 
     hess [B, n, n] and g [B, n] are already active-dim sliced.  The re-init
     numbers are drawn every round (as the JAX package splits its key every
-    round), from ``generator`` on the pose's device.  Only a solve over all
+    round), from ``generator`` (``uniform_draws``).  Only a solve over all
     three DoF with ``cfg.reinit`` re-inits (and draws), as in the JAX
     package; without it ``generator`` may be None.
     """
@@ -91,8 +131,7 @@ def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
     new = pose.to(torch.float32).clone()
     new[:, act] += delta
     if cfg.reinit and n == 3:
-        rand = torch.rand(2, B, generator=generator, dtype=torch.float32,
-                          device=pose.device) * 2.0 - 1.0
+        rand = uniform_draws(generator, (2, B), pose.device)
         lim = REINIT_RANGE
         su, sv = new[:, 0], new[:, 1]
         new = torch.stack([
@@ -109,7 +148,7 @@ def _safe_norm(x, floor: float):
 
 
 def lm_update(pose, sat_feat, grd_feat, jac, damping_param, cfg: LMConfig,
-              generator: torch.Generator):
+              generator: Draws):
     """One damped Gauss-Newton (LM) update on a materialized Jacobian, the
     ``use_implicit_lm=0`` update of every family (port of JAX
     ``lm_update``, reference models_kitti.py:939-1041 for S2GP and Ford,
@@ -155,7 +194,7 @@ def _pair(Pa, Da, Pb, Db, m0, m1, m2):
 
 
 def lm_update_from_moments(pose, M, P0, dP, damping_param, cfg: LMConfig,
-                           generator: torch.Generator):
+                           generator: Draws):
     """LM update from K1's per-row moments.
 
     M [B, V, 3, 16] (or the first 9 lanes, [B, V, 3, 9]) moment rows (sum,
@@ -207,7 +246,7 @@ def lm_update_from_moments(pose, M, P0, dP, damping_param, cfg: LMConfig,
 
 
 def lm_update_implicit(pose, out, dx, dy, grd, mask, P0, dP, damping_param,
-                       cfg: LMConfig, generator: torch.Generator):
+                       cfg: LMConfig, generator: Draws):
     """LM update from implicit (never materialized) Jacobians, the training
     path's update: differentiable with respect to every tensor argument.
 
@@ -236,9 +275,25 @@ def _pixel_hessian(Du, Dv, sxx, sxy, syy):
             + outer(Dv, Dv, syy))
 
 
+def _implicit_moments(out, dx, dy, grd, mask):
+    """The moment preamble of the per-pixel implicit update and of
+    ``lm_information`` (JAX ``_implicit_moments`` without the dropout the
+    port refuses): the nine per-pixel channel moments [B, H, W, 9] in
+    ``MOM_IDX`` order under the mask [1|B, H, W], and the whole-map feature
+    norms ns, ng [B] floored at 1e-6."""
+    f32 = torch.float32
+    m = mask.to(f32)[..., None]
+    mom = channel_moments(out.to(f32), dx.to(f32), dy.to(f32), grd) * m
+    ns = torch.sqrt(torch.clamp_min(mom[..., MOM_IDX["ss"]].sum((1, 2)),
+                                    1e-12))
+    ng = torch.sqrt(torch.clamp_min(mom[..., MOM_IDX["gg"]].sum((1, 2)),
+                                    1e-12))
+    return mom, ns, ng
+
+
 def lm_update_implicit_pixel_norm(pose, out, dx, dy, grd, mask, duv,
                                   damping_param, cfg: LMConfig,
-                                  generator: torch.Generator):
+                                  generator: Draws):
     """The S2GP / Ford LM update from per-pixel implicit Jacobians, the
     gather path's (port of JAX ``lm_update_implicit_pixel_norm`` with its
     ``_implicit_moments``): ``lm_update`` on the Jacobian
@@ -252,14 +307,11 @@ def lm_update_implicit_pixel_norm(pose, out, dx, dy, grd, mask, duv,
     respect to every tensor argument.
     """
     f32 = torch.float32
-    m = mask.to(f32)[..., None]
-    mom = channel_moments(out.to(f32), dx.to(f32), dy.to(f32), grd) * m
+    mom, ns, ng = _implicit_moments(out, dx, dy, grd, mask)
 
     def pix(name):
         return mom[..., MOM_IDX[name]]                    # [B, H, W]
 
-    ns = torch.sqrt(torch.clamp_min(pix("ss").sum((1, 2)), 1e-12))  # [B]
-    ng = torch.sqrt(torch.clamp_min(pix("gg").sum((1, 2)), 1e-12))
     Du = duv[..., 0, :].to(f32)                           # [B, H, W, 3]
     Dv = duv[..., 1, :].to(f32)
     hess = _pixel_hessian(Du, Dv, pix("sxx"), pix("sxy"), pix("syy")) \
@@ -323,3 +375,65 @@ def lm_update_pixel_moments(pose, pm, duv, damping_param, cfg: LMConfig):
                     for k in ("sxx", "sxy", "syy", "rx", "ry"))
     return _pixel_solve(pose, duv[..., 0, :].to(f32), duv[..., 1, :].to(f32),
                         moments, damping_param, cfg)
+
+
+def lm_information(out, dx, dy, target, mask, duv, active_dims,
+                   normalize: bool):
+    """Gauss-Newton information of the LM objective at a pose (port of JAX
+    ``lm_information``): the solver's own J^T J, from the moments of the
+    gather path's update (``_implicit_moments``; the [B, H, W, C, 3]
+    Jacobian is never materialized).
+
+    out, dx, dy [B, H, W, C] sampled values and screen derivatives; target
+    [B, H, W, C] the other branch's features (unmasked); mask [1|B, H, W]
+    (all ones for the G2SP objective, whose residual keeps the pixels the
+    sampler zeroes); duv [B, H, W, 2, 3].  ``normalize``: the S2GP / Ford
+    residual r = s/ns - g/ng with the floored whole-map norms; else the
+    G2SP residual r = out - target.
+
+    Returns (hess [B, 3, 3] with zero rows and columns on inactive DoFs,
+    rss [B] the residual sum of squares, n_res [B] the residual count).
+    rss is summed from the residual itself: the ss + gg - 2 sg identity
+    cancels catastrophically in float32 exactly where the fit is good.
+    """
+    f32 = torch.float32
+    B, H, W, C = out.shape
+    mom, ns, ng = _implicit_moments(out, dx, dy, target, mask)
+    hess = _pixel_hessian(duv[..., 0, :].to(f32), duv[..., 1, :].to(f32),
+                          *(mom[..., MOM_IDX[k]] for k in ("sxx", "sxy",
+                                                          "syy")))
+    m = mask.to(f32).expand(mask.shape[0], H, W)[..., None]
+    out, tgt = out.to(f32), target.to(f32)
+    if normalize:
+        hess = hess / (ns * ns)[:, None, None]
+        r = (out / ns[:, None, None, None]
+             - tgt / ng[:, None, None, None]) * m
+    else:
+        r = (out - tgt) * m
+    rss = (r * r).sum((1, 2, 3))
+    n_res = (m[..., 0].sum((1, 2)) * C).expand(B)
+    sel = torch.zeros(3, dtype=f32, device=hess.device)
+    sel[list(active_dims)] = 1.0
+    return hess * sel[None, :, None] * sel[None, None, :], rss, n_res
+
+
+def pose_covariance(hess, rss, n_res, active_dims):
+    """[B, 3, 3] pose covariance from ``lm_information``'s outputs (port of
+    JAX ``pose_covariance``): sigma^2 H^-1 on the active block, sigma^2 =
+    rss / (n_res - n), a float32 inverse with the relative Tikhonov floor
+    1e-9 tr(H) / n + 1e-20 (a flat residual gives a large but finite
+    covariance), and zero rows and columns on the inactive DoFs."""
+    f32 = torch.float32
+    act = list(active_dims)
+    n = len(act)
+    h = hess[:, act][:, :, act].to(f32)                   # [B, n, n]
+    tr = torch.diagonal(h, dim1=-2, dim2=-1).sum(-1)
+    eye = torch.eye(n, dtype=f32, device=h.device)
+    h = h + (1e-9 * tr / n + 1e-20)[:, None, None] * eye
+    sigma2 = rss / torch.clamp_min(n_res - n, 1.0)
+    # inv_ex: no host-side error check (which would wait for the device)
+    cov_act = torch.linalg.inv_ex(h)[0] * sigma2[:, None, None]
+    cov = torch.zeros(hess.shape[0], 3, 3, dtype=f32, device=h.device)
+    idx = torch.tensor(act, device=h.device)
+    cov[:, idx[:, None], idx[None, :]] = cov_act
+    return cov

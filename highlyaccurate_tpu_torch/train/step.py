@@ -12,6 +12,8 @@ them yet (queue A6, ``torch.distributed``).
     state, metrics = step(state, sat, grd, camera_k, gt_pose, generator)  # G2SP
     step = make_train_step(model, cfg, ford_side_m=512 * 0.22)          # Ford
     state, metrics = step(state, sat, grd, R_FL, T_FL, gt_pose, generator)
+    step = make_eval_step(model, cfg, warm_start=True, with_info=True)
+    lat, lon, theta, cov = step(sat, grd, init_pose, generator)        # S2GP
 
 One step differentiates ``loss_func`` over the whole unrolled solver and
 applies Adam.  Parameters that receive no gradient (the confidence heads,
@@ -31,6 +33,9 @@ import dataclasses
 import torch
 
 from highlyaccurate_tpu_torch.config import Config
+from highlyaccurate_tpu_torch.models.lm_s2gp import eval_draws_per_image
+from highlyaccurate_tpu_torch.solver.updates import (PresetDraws,
+                                                     uniform_draws)
 from highlyaccurate_tpu_torch.train.state import TrainState
 
 METRICS = ("loss_decrease", "shift_lat_decrease", "shift_lon_decrease",
@@ -113,27 +118,89 @@ def to_device(x, device: torch.device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-def make_eval_step(model: torch.nn.Module, cfg: Config, ford_side_m=None):
-    """Inference: the final (shift_lat, shift_lon, theta), each [B].
+class EvalProgram(torch.nn.Module):
+    """The evaluation forward of a model as a module of tensors alone, the
+    unit ``Localizer.export`` exports with ``torch.export``:
 
-    S2GP (an ``LMS2GP``): ``step(sat, grd, generator)``; G2SP (an
-    ``LMG2SP``): ``step(sat, grd, camera_k, generator)`` (G2SP never
-    re-inits and ignores the generator); Ford (an ``LMS2GPFord``, with
-    ``ford_side_m``): ``step(sat, grd, R_FL, T_FL, generator)``.  The model
-    holds its weights; the step runs under ``torch.no_grad()``."""
-    g2sp = cfg.direction == "G2SP"
-    ford = ford_side_m is not None
+        program(sat, grd, *extras[, init_pose], draws)
+            -> (shift_lat, shift_lon, theta[, cov])
+
+    extras: none for KITTI S2GP, camera_k [B, 3, 3] for G2SP, R_FL
+    [B, 3, 3] and T_FL [B, 3] for Ford (with ``ford_side_m``); init_pose
+    [B, 3] with ``warm_start``; cov [B, 3, 3] with ``with_info``.  draws
+    [B * draws_per_image] uniform in [-1, 1) are the forward's random
+    numbers (``PresetDraws``: the multi-start initial poses, then the
+    re-init of every round), an input because an exported program cannot
+    take a generator; a count that does not match what the forward takes
+    raises.  ``ford_layout`` fixes Ford's banded kernel layout (an
+    exported program cannot read the rig on the host); None reads it from
+    each batch's rig.
+    """
+
+    def __init__(self, model: torch.nn.Module, cfg: Config,
+                 ford_side_m=None, warm_start: bool = False,
+                 with_info: bool = False, ford_layout=None):
+        super().__init__()
+        self.model = model
+        self.g2sp = cfg.direction == "G2SP"
+        self.ford_side_m = ford_side_m
+        self.warm_start = warm_start
+        self.with_info = with_info
+        self.ford_layout = ford_layout
+        self.draws_per_image = eval_draws_per_image(cfg, model.lm_cfg)
+
+    def forward(self, sat, grd, *rest):
+        *extras, draws = rest
+        init = extras.pop() if self.warm_start else None
+        generator = PresetDraws(draws)
+        kw = dict(mode="test", init_pose=init, generator=generator,
+                  with_info=self.with_info)
+        if self.ford_side_m is not None:
+            R_FL, T_FL = extras
+            out = self.model(sat, grd, self.ford_side_m, R_FL, T_FL,
+                             layout=self.ford_layout, **kw)
+        elif self.g2sp:
+            (camera_k,) = extras
+            out = self.model(sat, grd, camera_k, **kw)
+        else:
+            if extras:  # the star-unpack must not silently eat stray args
+                raise TypeError(f"the S2GP eval step takes no extra inputs; "
+                                f"got {len(extras)}")
+            out = self.model(sat, grd, **kw)
+        if generator.used != draws.shape[0]:
+            raise ValueError(f"the forward took {generator.used} draws of "
+                             f"the {draws.shape[0]} given")
+        return out
+
+
+def make_eval_step(model: torch.nn.Module, cfg: Config, ford_side_m=None,
+                   warm_start: bool = False, with_info: bool = False):
+    """Inference (port of JAX ``make_eval_step`` without the mesh): the
+    final (shift_lat, shift_lon, theta), each [B], and with ``with_info``
+    their pose covariance [B, 3, 3] (normalized, pose order).
+
+    S2GP (an ``LMS2GP``): ``step(sat, grd[, init_pose], generator)``; G2SP
+    (an ``LMG2SP``): ``step(sat, grd, camera_k[, init_pose], generator)``;
+    Ford (an ``LMS2GPFord``, with ``ford_side_m``): ``step(sat, grd, R_FL,
+    T_FL[, init_pose], generator)``; ``init_pose`` [B, 3] with
+    ``warm_start``.  The step draws the forward's random numbers from
+    ``generator`` (a ``torch.Generator`` on the model's device; G2SP draws
+    only for ``pose_hypotheses > 1`` and otherwise takes None) ahead of the
+    forward, in one call, and runs ``EvalProgram`` on them, so a program
+    exported from ``EvalProgram`` and fed numbers from a generator seeded
+    alike gives the same outputs.  The model holds its weights; the step
+    runs under ``torch.no_grad()``."""
+    program = EvalProgram(model, cfg, ford_side_m, warm_start, with_info)
 
     @torch.no_grad()
     def step(sat, grd, *rest):
-        if ford:
-            R_FL, T_FL, generator = rest
-            return model(sat, grd, ford_side_m, R_FL, T_FL, mode="test",
-                         generator=generator)
-        if g2sp:
-            camera_k, _ = rest
-            return model(sat, grd, camera_k, mode="test")
-        (generator,) = rest
-        return model(sat, grd, mode="test", generator=generator)
+        *args, generator = rest
+        n = program.draws_per_image * sat.shape[0]
+        if n and generator is None:
+            raise ValueError("this evaluation draws random numbers "
+                             "(multi-start or re-init): pass a generator")
+        draws = (uniform_draws(generator, (n,), sat.device) if n
+                 else sat.new_zeros(0))
+        return program(sat, grd, *args, draws)
 
     return step

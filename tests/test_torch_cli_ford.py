@@ -29,6 +29,8 @@ prediction left the re-init range).
   leaves both feature networks bit-equal while the damping trains;
 * ``write_ford`` writes the same files, line for line, as JAX's on the
   same results;
+* ``--test 1 --pose_hypotheses 2`` runs the multi-start sweep and writes
+  its result files;
 * the refusals name their option; ``--visualize`` and ``--profile_dir``
   write their files.
 """
@@ -280,8 +282,7 @@ def test_write_ford_matches_jax(tmp_path):
         np.testing.assert_array_equal(t[k], j[k])
 
 
-REFUSED = {"pose_hypotheses": ["--pose_hypotheses", "2"],
-           "estimate_depth": ["--estimate_depth", "1"],
+REFUSED = {"estimate_depth": ["--estimate_depth", "1"],
            "use_gt_depth": ["--use_gt_depth", "1"],
            "proj": ["--proj", "polar"],
            "Optimizer": ["--Optimizer", "SGD"]}
@@ -292,6 +293,24 @@ def test_refused_options_name_themselves(tmp_path, name):
     with pytest.raises(NotImplementedError, match=name):
         cli.main(["--test", "1", "--device", "cpu", "--save_root",
                   str(tmp_path)] + GEOM + REFUSED[name])
+
+
+def test_pose_hypotheses_evaluates(tmp_path):
+    """``--test 1 --pose_hypotheses 2`` on the banded path (its plain
+    versions here) evaluates with two starts per image and writes the
+    result files."""
+    pth = tmp_path / "ref.pth"
+    torch.save(state_dict_from_jax(_jax_params(seed=7)), pth)
+    argv = ["--test", "1", "--import_pth", str(pth), "--use_banded_warp",
+            "1", "--pose_hypotheses", "2", "--synthetic", "2",
+            "--batch_size", "2", "--N_iters", "1", "--device", "cpu",
+            "--save_root", str(tmp_path)] + GEOM
+    cfg = config_from_args(cli.parse_args(argv))
+    assert cfg.pose_hypotheses == 2
+    cli.main(argv)
+    save_path = cfg.ford_paths(str(tmp_path))[1]
+    assert os.path.exists(os.path.join(save_path, "0_results.txt"))
+    assert np.isfinite(_preds(save_path)).all()
 
 
 def test_entry_errors(tmp_path):

@@ -23,8 +23,8 @@ re-init range.
 * ``--test 1`` on the port's own run reads ``model_1`` with bf16 features;
   ``--test 1 --import_pth`` at its faithful defaults (the gather sampler,
   the full G2SP grid, float32) agrees with the JAX CLI's within
-  ``EVAL_ATOL`` (S2GP and G2SP); ``--pose_hypotheses 2`` raises
-  ``NotImplementedError`` naming the option;
+  ``EVAL_ATOL`` (S2GP and G2SP); ``--test 1 --pose_hypotheses 2`` runs
+  the multi-start sweep and writes its result files;
 * ``--visualize`` writes the trajectory and feature-PCA files, and
   ``project_at_pose`` equals the JAX model's maps within
   ``PROJECT_ATOL``, also at headings whose rows fail the banded validity
@@ -217,9 +217,6 @@ def test_train_resume_matches_jax(tmp_path, monkeypatch):
 
 
 def test_refused_options_name_themselves(tmp_path):
-    with pytest.raises(NotImplementedError, match="pose_hypotheses"):
-        cli.main(["--test", "1", "--pose_hypotheses", "2", "--device", "cpu",
-                  "--save_root", str(tmp_path)] + S2GP)
     with pytest.raises(FileNotFoundError, match="no checkpoint 'model_1'"):
         cli.main(["--test", "1", "--device", "cpu",
                   "--save_root", str(tmp_path)] + S2GP)
@@ -257,6 +254,25 @@ def test_import_pth_faithful_matches_jax(tmp_path, monkeypatch, capsys,
         _assert_in_range(want)
         print(family, split, "max |port - JAX|:", np.abs(got - want).max(0))
         np.testing.assert_allclose(got, want, rtol=0, atol=EVAL_ATOL)
+
+
+def test_pose_hypotheses_evaluates(tmp_path):
+    """``--test 1 --pose_hypotheses 2`` on the banded path (its plain
+    versions here) evaluates with two starts per image and writes the
+    result files of both splits."""
+    pth = tmp_path / "ref.pth"
+    torch.save(state_dict_from_jax(_jax_params(S2GP, seed=7)), pth)
+    argv = ["--test", "1", "--import_pth", str(pth), "--use_banded_warp",
+            "1", "--pose_hypotheses", "2", "--synthetic", "2",
+            "--batch_size", "2", "--N_iters", "1", "--device", "cpu",
+            "--save_root", str(tmp_path)] + S2GP
+    cfg = config_from_args(cli.parse_args(argv))
+    assert cfg.pose_hypotheses == 2
+    cli.main(argv)
+    for split in ("Test1", "Test2"):
+        assert os.path.exists(os.path.join(cfg.save_path(str(tmp_path)),
+                                           f"{split}_results.txt"))
+        assert np.isfinite(_preds(cfg.save_path(str(tmp_path)), split)).all()
 
 
 def test_import_pth_evaluates_on_banded_kernels(tmp_path):

@@ -337,7 +337,6 @@ REFUSED = {
     "Optimizer=NN": dict(Optimizer="NN"), "Optimizer=ADAM": dict(Optimizer="ADAM"),
     "estimate_depth": dict(estimate_depth=1),
     "use_gt_depth": dict(use_gt_depth=1),
-    "pose_hypotheses": dict(pose_hypotheses=4),
     "using_weight": dict(using_weight=1), "dropout": dict(dropout=2),
     "level_first": dict(level_first=1), "proj": dict(proj="polar"),
 }

@@ -2,7 +2,9 @@
 ``Localizer.predict`` (S2GP) on the CPU against the JAX ``Localizer`` on the
 same params; the port imports nothing of JAX; options the port does not
 carry raise ``NotImplementedError``; with no GPU, the default device
-raises.  The G2SP ``Localizer`` is in tests/test_torch_lm_g2sp.py."""
+raises.  The G2SP ``Localizer`` is in tests/test_torch_lm_g2sp.py; the
+covariance, multi-start and export in tests/test_torch_serving_api.py and
+tests/test_torch_export.py."""
 
 import ast
 import pathlib
@@ -96,7 +98,6 @@ def test_port_imports_no_jax():
 UNSUPPORTED = [
     dict(proj="polar"), dict(Optimizer="SGD"), dict(using_weight=1),
     dict(use_gt_depth=1), dict(dropout=2), dict(level_first=1),
-    dict(pose_hypotheses=4),
 ]
 
 
@@ -118,8 +119,11 @@ def test_unsupported_options_raise(opt):
 # * S2GP with ``use_fused_moments=0`` (K2 and ``lm_update_implicit``,
 #   fp32 map, JAX ``use_banded_warp=2``) and with ``use_banded_warp=0``
 #   (the gather sampler on both sides);
-# * Ford at bf16 features (JAX ``use_banded_warp=2``).
-# atol 1e-3 m / deg as above (measured 5.3e-5 and 3.8e-6), except where a
+# * Ford at bf16 features (JAX ``use_banded_warp=2``);
+# * S2GP with ``pose_hypotheses=4`` (fp32 map, JAX ``use_banded_warp=2``),
+#   both frameworks fed the same starts (``_feed_starts``).
+# atol 1e-3 m / deg as above (measured 5.3e-5, 3.8e-6 and 5.1e-5), except
+# where a
 # bf16 map or bf16 features enter: G2SP's projective-line levels sample a
 # bf16 copy of each framework's own ground map, whose rounding flips where
 # the two convolutions differ in the last bits, so atol 5e-2 m / deg
@@ -134,11 +138,38 @@ LIFTED = {
     "use_banded_warp": (dict(use_banded_warp=0), {}),
     "compute_dtype": (dict(compute_dtype="bfloat16"),
                       dict(use_banded_warp=2)),
+    "pose_hypotheses": (dict(pose_hypotheses=4, banded_bf16_map=0),
+                        dict(use_banded_warp=2)),
 }
+# the multi-start initial poses of one batch of 2 [2, 4, 3]; hypothesis 0
+# is the zero start in both frameworks
+STARTS = np.array([[[0.0, 0.0, 0.0], [0.5, -0.4, 0.5], [-0.5, 0.4, -0.6],
+                    [0.3, 0.55, 0.2]],
+                   [[0.0, 0.0, 0.0], [-0.4, -0.5, 0.3], [0.6, 0.3, -0.4],
+                    [-0.2, 0.45, 0.6]]], np.float32)
+
+
+def _feed_starts(monkeypatch):
+    """JAX's (B, P, 3) start draw and the port's ``draw_starts`` both
+    return STARTS (the port's still consumes its generator's numbers)."""
+    from highlyaccurate_tpu_torch.models import lm_s2gp
+    uniform, draw = jax.random.uniform, lm_s2gp.draw_starts
+
+    def jax_uniform(key, shape=(), *a, **k):
+        if len(shape) == 3 and shape[-1] == 3:
+            return jnp.asarray(STARTS[:shape[0], :shape[1]])
+        return uniform(key, shape, *a, **k)
+
+    def port_draw(generator, B, P, device):
+        draw(generator, B, P, device)
+        return torch.from_numpy(STARTS[:B, :P]).to(device)
+
+    monkeypatch.setattr(jax.random, "uniform", jax_uniform)
+    monkeypatch.setattr(lm_s2gp, "draw_starts", port_draw)
 
 
 @pytest.mark.parametrize("name", list(LIFTED))
-def test_lifted_options_serve_like_jax(name):
+def test_lifted_options_serve_like_jax(name, monkeypatch):
     from highlyaccurate_tpu.inference import Localizer as JLocalizer
     from highlyaccurate_tpu_torch.inference import Localizer
     from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
@@ -157,6 +188,8 @@ def test_lifted_options_serve_like_jax(name):
         extra = dict(ford_extrinsics=(R, np.array([1.0, 0.5, -1.4],
                                                   np.float32)),
                      ford_side_m=64 * 0.22)
+    if name == "pose_hypotheses":
+        _feed_starts(monkeypatch)
     sat, grd = _images(11, n=3)
     want = JLocalizer(JConfig(**kw, **jax_kw), params=params, batch_size=2,
                       **extra).predict(sat, grd)
@@ -185,8 +218,9 @@ def test_unsupported_entry_options_raise():
                   ford_side_m=100.)
     loc = Localizer(Config(**TINY), random_init=True, device="cpu")
     sat, grd = _images(0, n=1)
-    with pytest.raises(NotImplementedError, match="return_cov"):
-        loc.predict(sat, grd, return_cov=True)
+    with pytest.warns(UserWarning, match="UNCALIBRATED"):
+        out = loc.predict(sat, grd, return_cov=True)
+    assert out["cov"].shape == (1, 3, 3) and np.isfinite(out["cov"]).all()
     # loss_method 1-3 still serve, as in JAX; training refuses them
     loc = Localizer(Config(**TINY, loss_method=1), random_init=True,
                     device="cpu")

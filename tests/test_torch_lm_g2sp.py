@@ -226,7 +226,6 @@ REFUSED = {
     "proj": dict(proj="polar"), "Optimizer": dict(Optimizer="SGD"),
     "using_weight": dict(using_weight=1),
     "Optimizer_NN": dict(Optimizer="NN"),
-    "pose_hypotheses": dict(pose_hypotheses=4),
 }
 
 # Options the port carries since the gather path came (they were refused
@@ -299,8 +298,9 @@ def test_g2sp_refusals_and_errors():
         loc.predict(sat, grd)
     with pytest.raises(ValueError, match="camera_k must have shape"):
         loc.predict(sat, grd, camera_k=_camera_k(2))
-    with pytest.raises(NotImplementedError, match="return_cov"):
-        loc.predict(sat, grd, camera_k=K, return_cov=True)
+    with pytest.warns(UserWarning, match="UNCALIBRATED"):
+        out = loc.predict(sat, grd, camera_k=K, return_cov=True)
+    assert out["cov"].shape == (sat.shape[0], 3, 3)
     with pytest.raises(NotImplementedError, match="corr head"):
         loc.model.corr()
     loc1 = Localizer(Config(**TINY, loss_method=1), random_init=True,
