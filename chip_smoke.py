@@ -116,11 +116,28 @@ Builds the hand-written kernels from the sources in the checkout, then:
    ``ExportedLocalizer`` in a fresh process (its launches, its outputs
    against the live Localizer's, its batch-1 latency; artifacts under
    build/serving_api/).
+13. solver_options: the solver options at the flagship widths and depth
+   (``phase_solver_options``, ``SOLVER_OPTIONS``): S2GP with
+   ``level_first`` (15 K1 per serving batch), ``dropout`` (15 K2, no K1),
+   ``Optimizer`` ADAM and NN (15 K2), ``using_weight`` (the gather
+   sampler, no hand kernel) and ``loss_method=3`` (training only, no hand
+   kernel), Ford with ``Optimizer=GN`` (15 K2) and G2SP with
+   ``using_weight`` (no hand kernel): a serving window of
+   ``SOLVER_BATCHES`` batches and a train window of
+   ``SOLVER_TRAIN_STEPS`` steps (15 K2 and 15 K3 per step where the table
+   says so) with exact launch counts, frames/s, ms/step and peak memory;
+   each against a CPU run of the port at batch 2 on the same draws (drawn
+   on the CPU: a CUDA generator gives another stream), beside the card
+   with TF32 convolutions: the round-1 pose within ``SOLVER_ROUND1_TOL``,
+   the train step's loss and gradients within ``SOLVER_TRAIN_TOL`` (loss
+   method 3's gradients are NaN, in the same tensors, as in JAX).
 
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
 second checkout in DIR (the parent commit) and of this one in turns, and
 ``--ab-e2e DIR`` the S2GP serving and training cells (``ab_turns``);
-``--serving-api`` runs the kernels' build and phase 12 alone.
+``--serving-api`` runs the kernels' build and phase 12 alone,
+``--solver-options [NAME ...]`` phase 13 (or the configurations named, as
+in ``SOLVER_OPTIONS``).
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -2686,6 +2703,235 @@ def phase_serving_api(torch, dev):
     return row
 
 
+SOLVER_BATCHES = 3      # each solver-option serving window
+SOLVER_TRAIN_STEPS = 2  # each solver-option train window, after a warm-up
+SOLVER_SEED = {"S2GP": 0, "G2SP": 2, "Ford": 4}  # the banded phases' images
+# per configuration: (family, Config overrides, kernel launches per
+# serving batch or None (no serving window), per train step or None);
+# {} = no hand kernel
+SOLVER_OPTIONS = {
+    "S2GP level_first": ("S2GP", dict(level_first=1), {"k1": 15},
+                         {"k2": 15, "k3": 15}),
+    "S2GP dropout": ("S2GP", dict(dropout=1), {"k2": 15},
+                     {"k2": 15, "k3": 15}),
+    "S2GP ADAM": ("S2GP", dict(Optimizer="ADAM"), {"k2": 15}, None),
+    "S2GP NN": ("S2GP", dict(Optimizer="NN"), {"k2": 15},
+                {"k2": 15, "k3": 15}),
+    "S2GP using_weight": ("S2GP", dict(using_weight=1), {}, None),
+    "S2GP loss_method=3": ("S2GP", dict(loss_method=3), None, {}),
+    "Ford GN": ("Ford", dict(Optimizer="GN"), {"k2": 15},
+                {"k2": 15, "k3": 15}),
+    "G2SP using_weight": ("G2SP", dict(using_weight=1), {}, None),
+}
+# card vs CPU at batch 2 (see PERF.md section 6), each limit between the
+# reading and the card with TF32 convolutions: the round-1 pose of serving
+# (ADAM's first step is lr * sign(gradient), so its round 1 reads 1 ulp
+# of 0.01 on the card and 3 with TF32: the limit passes 2 ulps and fails
+# a flipped sign; its later steps divide by gradients near zero, and round
+# 2 reads 3.6e-4, beyond TF32's 2.3e-4), and the loss and gradients (relL2
+# over all parameters; NN: of the worst tensor, since the head's gradients
+# dominate the sum) of one train step (NN's loss reads 0 both ways: its
+# random head moves the pose by ~1e-9, below the loss's last bit)
+SOLVER_ROUND1_TOL = {"S2GP level_first": 3e-5, "S2GP dropout": 3e-5,
+                     "S2GP ADAM": 2.5e-9, "S2GP NN": 2e-8,
+                     "S2GP using_weight": 2e-6, "Ford GN": 3e-4,
+                     "G2SP using_weight": 1e-6}
+SOLVER_TRAIN_TOL = {
+    "S2GP level_first": {"loss_rel_err": 2e-4, "grad_rel_l2_all": 3e-2},
+    "S2GP dropout": {"loss_rel_err": 3e-4, "grad_rel_l2_all": 5e-2},
+    "S2GP NN": {"loss_rel_err": 1e-6, "grad_rel_l2_max": 2e-3},
+    "S2GP loss_method=3": {"loss_rel_err": 3e-5},
+    "Ford GN": {"loss_rel_err": 3e-4, "grad_rel_l2_all": 5e-2},
+}
+
+
+def solver_draws(torch, cfg, model, n):
+    """The random numbers of a forward of n images of ``cfg`` (the
+    dropout's and the re-init's), drawn on the CPU, so that the card and
+    the CPU twin get the same (their generators give other streams)."""
+    from highlyaccurate_tpu_torch.models.lm_s2gp import (
+        eval_draws_per_batch, eval_draws_per_image)
+    count = (eval_draws_per_image(cfg, model.lm_cfg) * n
+             + eval_draws_per_batch(cfg))
+    return torch.rand(count, generator=torch.Generator().manual_seed(0)
+                      ) * 2 - 1
+
+
+def solver_serving(torch, dev, name, family, over, per_batch):
+    """One configuration's serving: a window of ``SOLVER_BATCHES``
+    batches of ``Localizer.predict`` with exact launch counts, and the
+    trajectory of the card against a CPU run at batch 2 on the same
+    draws (``solver_draws``)."""
+    from highlyaccurate_tpu_torch.inference import Localizer
+    from highlyaccurate_tpu_torch.solver.updates import PresetDraws
+    cfg, cls, loc_kw, extra, _ = serving_family(torch, dev, family, **over)
+    t0 = time.perf_counter()
+    loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                    **loc_kw)
+    init_s = time.perf_counter() - t0
+    sat, grd = serve_images(cfg, SOLVER_SEED[family], BATCH * SOLVER_BATCHES)
+    out, wall, counts, peak_gb = serve_window(
+        torch, loc, sat, grd, f"{name} serving", per_batch)
+    model = loc.model
+    s2, g2 = first_batch(torch, dev, sat, grd)
+    numbers = solver_draws(torch, cfg, model, 2)
+    cpu = cpu_twin(cls, model)
+
+    def traj(m, device):
+        kw = ({} if family == "G2SP"
+              else dict(generator=PresetDraws(numbers.to(device))))
+        return m(s2[:2].to(device), g2[:2].to(device), *extra(2, device),
+                 mode="trajectory", **kw)
+
+    vs_cpu = traj_vs_cpu(torch, lambda: traj(model, dev),
+                         lambda: traj(cpu, "cpu"), SOLVER_ROUND1_TOL[name],
+                         name)
+    del cpu
+    row = dict(frames_per_s=out["lateral_m"].shape[0] / wall,
+               ms_per_batch=wall / SOLVER_BATCHES * 1e3, batches=
+               SOLVER_BATCHES, peak_mem_gb=peak_gb, init_s=init_s,
+               launches_per_batch={k: v // SOLVER_BATCHES
+                                   for k, v in counts.items() if v},
+               traj_card_vs_cpu=vs_cpu)
+    del loc, model
+    torch.cuda.empty_cache()
+    return row
+
+
+def solver_train(torch, dev, name, family, over, per_step):
+    """One configuration's training at batch 8: a warm-up step, then
+    ``SOLVER_TRAIN_STEPS`` steps with exact launch counts (ms/step, peak
+    memory); then one training forward and backward of the card against a
+    CPU run at batch 2 on the initial weights and the same draws: the
+    loss, and every gradient's relL2 (loss method 3: which tensors are
+    NaN, as in JAX), beside the card with TF32 convolutions."""
+    from highlyaccurate_tpu_torch.params import init_params
+    from highlyaccurate_tpu_torch.solver.updates import PresetDraws
+    from highlyaccurate_tpu_torch.train.state import create_train_state
+    from highlyaccurate_tpu_torch.train.step import make_train_step
+    cfg, cls, _, extra, _ = serving_family(torch, dev, family, **over)
+    model = cls(cfg, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    weights = {k: v.detach().cpu().clone()
+               for k, v in model.state_dict().items()}
+    state = create_train_state(cfg, model)
+    step = make_train_step(model, cfg, **(
+        dict(ford_side_m=FORD_SIDE_M) if family == "Ford" else {}))
+    rng = np.random.RandomState(SOLVER_SEED[family] + 1)
+    n = SOLVER_TRAIN_STEPS + 1
+    sat = torch.from_numpy((rng.rand(n, BATCH, cfg.sat_size, cfg.sat_size,
+                                     3) * 255).astype(np.uint8)).to(dev)
+    grd = torch.from_numpy((rng.rand(n, BATCH, cfg.grd_h, cfg.grd_w, 3)
+                            * 255).astype(np.uint8)).to(dev)
+    gt = torch.from_numpy(rng.uniform(-1, 1, (n, BATCH, 3)).astype(
+        np.float32)).to(dev)
+    ext = extra(BATCH, dev)
+    extra_step = ext[1:] if family == "Ford" else ext
+
+    def batch(i, b=BATCH):
+        return (sat[i, :b].float() / 255.0, grd[i, :b].float() / 255.0,
+                *(e[:b] for e in extra_step), gt[i, :b])
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state, m = step(state, *batch(0), gen)             # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(1, n):
+        state, m = step(state, *batch(i), gen)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = expect_launches(f"{name} train",
+                             {k: v * SOLVER_TRAIN_STEPS
+                              for k, v in per_step.items()})
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state, step, model
+    torch.cuda.empty_cache()
+
+    # card vs CPU at batch 2 on the initial weights and the same draws
+    b2 = batch(0, TRAIN_CHECK_BATCH)
+    loss_of = {"S2GP": s2gp_loss, "G2SP": g2sp_loss,
+               "Ford": ford_loss}[family]
+    cpu = cls(cfg, device="cpu")
+    cpu.load_state_dict(weights)
+    card = cls(cfg, device=dev)
+    card.load_state_dict(weights)
+    numbers = solver_draws(torch, cfg, cpu, TRAIN_CHECK_BATCH)
+
+    def run(m, data, device):
+        return train_grads(torch, m, loss_of, data,
+                           PresetDraws(numbers.to(device)))
+
+    t0 = time.perf_counter()
+    loss_c, grads_c = run(cpu, [t.cpu() for t in b2], "cpu")
+    cpu_s = time.perf_counter() - t0
+    grads_c = {k: g for k, g in grads_c.items() if g is not None}
+
+    def compare():
+        loss, grads = run(card, b2, dev)
+        row = dict(loss_rel_err=abs(loss - loss_c) / abs(loss_c))
+        if cfg.loss_method == 3:
+            row["nan_tensors"] = sum(bool(torch.isnan(g).any())
+                                     for g in grads_c.values())
+            row["nan_tensors_agree"] = all(
+                bool(torch.isnan(grads[k]).any()) == bool(
+                    torch.isnan(g).any()) for k, g in grads_c.items())
+        else:
+            row.update(grad_errors(torch, grads, grads_c))
+        return row
+
+    check = compare()
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        check_tf32 = compare()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    del cpu, card
+    torch.cuda.empty_cache()
+    failed = [k for k, tol in SOLVER_TRAIN_TOL[name].items()
+              if not check[k] <= tol]
+    if cfg.loss_method == 3 and not check["nan_tensors_agree"]:
+        failed.append("nan_tensors_agree")
+    if failed:
+        fail(f"{name} train step, card vs CPU: {failed}: {check}")
+    return dict(ms_per_step=wall / SOLVER_TRAIN_STEPS * 1e3,
+                steps=SOLVER_TRAIN_STEPS, peak_mem_gb=peak_gb,
+                launches_per_step={k: v // SOLVER_TRAIN_STEPS
+                                   for k, v in counts.items() if v},
+                card_vs_cpu=dict(batch=TRAIN_CHECK_BATCH, cpu_s=cpu_s,
+                                 cpu_loss=loss_c, **check,
+                                 tf32_convs=check_tf32))
+
+
+def phase_solver_options(torch, dev, only=None):
+    """The solver options at the flagship widths and depth (level 3,
+    N_iters 5, sat 512, grd 256x1024, batch 8, fp32 features, bf16 map,
+    TF32 off; random weights and the banded phases' seeded images), each
+    configuration of ``SOLVER_OPTIONS`` (``only``: a subset of its names):
+    a serving window and a train window with exact launch counts, each
+    against a CPU run of the port at batch 2 (``solver_serving``,
+    ``solver_train``).  Prints one JSON line per configuration and the
+    phase's seconds."""
+    t_phase = time.perf_counter()
+    for name, (family, over, per_batch, per_step) in SOLVER_OPTIONS.items():
+        if only and name not in only:
+            continue
+        row = dict(phase="solver_options", config=name, family=family,
+                   overrides=over, limits=dict(
+                       serving=SOLVER_ROUND1_TOL.get(name),
+                       train=SOLVER_TRAIN_TOL.get(name)))
+        if per_batch is not None:
+            row["serving"] = solver_serving(torch, dev, name, family, over,
+                                            per_batch)
+        if per_step is not None:
+            row["train"] = solver_train(torch, dev, name, family, over,
+                                        per_step)
+        emit(row)
+    emit(dict(phase="solver_options_total",
+              seconds=time.perf_counter() - t_phase))
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -2808,6 +3054,8 @@ def main():
     emit(dict(phase="cli_ford_total", seconds=time.perf_counter() - t0))
     torch.cuda.empty_cache()
     phase_serving_api(torch, dev)
+    torch.cuda.empty_cache()
+    phase_solver_options(torch, dev)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes
@@ -2892,9 +3140,9 @@ def ab_turns(flag, parent):
                           turn=turn))
 
 
-def serving_api_alone():
-    """``python3 chip_smoke.py --serving-api``: the kernels' build and the
-    serving_api phase alone."""
+def phase_alone(phase, *args):
+    """``python3 chip_smoke.py --serving-api`` or ``--solver-options
+    [NAME ...]``: the kernels' build and that phase alone."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -2902,14 +3150,16 @@ def serving_api_alone():
     _build.build()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    phase_serving_api(torch, torch.device("cuda", 0))
     print(f"gpu: {gpu_line()}", flush=True)
+    phase(torch, torch.device("cuda", 0), *args)
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in AB_RUNS:
         ab_turns(sys.argv[1], os.path.abspath(sys.argv[2]))
     elif sys.argv[1:] == ["--serving-api"]:
-        serving_api_alone()
+        phase_alone(phase_serving_api)
+    elif sys.argv[1:2] == ["--solver-options"]:
+        phase_alone(phase_solver_options, sys.argv[2:])
     else:
         main()

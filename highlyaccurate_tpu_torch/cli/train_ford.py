@@ -21,9 +21,11 @@ upstream, only the restore and freeze are live).  ``--test 1 --import_pth``
 evaluates a reference checkpoint on the gather sampler at float32, as the
 JAX CLI resolves it; ``--test 1`` on the port's own ``Model_best`` uses bf16
 features.  ``--pose_hypotheses P`` evaluates with P starts per image.
-``--estimate_depth``, ``--use_gt_depth``, ``--proj`` other than geo and
-``--Optimizer`` other than LM raise ``NotImplementedError`` naming the
-option.
+The solver options run as the model takes them: ``--Optimizer`` LM, GN,
+SGD or NN (ADAM raises ``ValueError``, as in JAX), ``--using_weight``,
+``--dropout``, ``--level_first`` and ``--loss_method`` 0-3.
+``--estimate_depth``, ``--use_gt_depth`` and ``--proj`` other than geo
+raise ``NotImplementedError`` naming the option.
 """
 
 from __future__ import annotations

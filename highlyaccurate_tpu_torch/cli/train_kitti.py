@@ -17,7 +17,12 @@ epoch's evaluation runs on the same model.  Checkpoints are torch
 ``--use_banded_warp 0`` runs the gather sampler; it is the faithful
 default of ``--test 1 --import_pth``, which also resolves to the full G2SP
 grid and float32 features, as the JAX CLI does.  ``--pose_hypotheses P``
-evaluates with P starts per image (the model's multi-start sweep).
+evaluates with P starts per image (the model's multi-start sweep).  The
+solver options run as the models take them: ``--Optimizer`` (LM, SGD,
+ADAM with ``--beta1`` / ``--beta2``, NN), ``--using_weight``,
+``--dropout``, ``--level_first`` and ``--loss_method`` 0-3 (G2SP: 0).
+``--proj`` other than geo and ``--use_gt_depth`` raise
+``NotImplementedError`` naming the option.
 
 Quirks kept on purpose: Adam is re-created every epoch with a poly-decayed
 lr; ``--test 1`` loads ``model_1`` as the reference loads ``model_1.pth``.

@@ -335,7 +335,7 @@ class Localizer:
                 args.append(zeros(bs, 3, 3))
             if warm_start:
                 args.append(zeros(bs, 3))
-            args.append(zeros(program.draws_per_image * bs))
+            args.append(zeros(program.n_draws(bs)))
             with torch.no_grad():
                 exported = torch.export.export(program, tuple(args),
                                                strict=False)
@@ -361,6 +361,7 @@ class Localizer:
                          else self._camera_k.tolist()),
             "device": dev.type,
             "draws_per_image": program.draws_per_image,
+            "draws_per_batch": program.draws_per_batch,
         }
         with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
             z.writestr("meta.json", json.dumps(meta, indent=1))
@@ -462,7 +463,8 @@ class ExportedLocalizer:
                       ("camera_k",) if self._g2sp else ())]
             if self._warm:
                 args.append(_to_device(eb["_init_pose"], dev))
-            n_draws = meta["draws_per_image"] * bs
+            n_draws = (meta["draws_per_image"] * bs
+                       + meta["draws_per_batch"])
             args.append(uniform_draws(self._generator, (n_draws,), dev)
                         if n_draws else torch.zeros(0, device=dev))
             with torch.no_grad():

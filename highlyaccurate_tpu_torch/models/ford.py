@@ -1,19 +1,25 @@
 """LM_S2GP_Ford evaluation and training (port of
-``highlyaccurate_tpu/models/ford.py:40-130, 132-260, 393-420, 453-529``).
+``highlyaccurate_tpu/models/ford.py:40-130, 132-300, 393-420, 453-529``).
 
 The Ford model is KITTI's S2GP with the Ford camera chain
 (``geometry/ford.py``): each round runs ``ford_uv_jac`` with the per-sample
 camera extrinsics R_FL [B, 3, 3], T_FL [B, 3] and the satellite patch's
 side length in meters, then the round of the shared base
 (``models/lm_s2gp.py`` ``S2GPBase``): on the banded path, at ground columns
-u = 0, 1 of each kept row, K1 and ``lm_update_from_moments`` in
-evaluation, K2 / K3 and ``lm_update_implicit`` in training (or in
-evaluation with ``use_fused_moments=0``), K2's samples and ``lm_update``
-with ``use_implicit_lm=0``; on the gather path (``use_banded_warp=0``) at
-every pixel of the kept rows, ``grid_sample_derivs`` and
-``lm_update_implicit_pixel_norm`` (JAX ``ford.py:198-215``), or
-``grid_sample`` with the Jacobian and ``lm_update``.  Only the bottom half
-of the ground rows is sampled.  ``compute_dtype="bfloat16"`` gives bf16
+u = 0, 1 of each kept row, K1 and ``lm_update_from_moments`` in LM
+evaluation, K2 / K3 and ``lm_update_implicit`` in LM training (or in
+evaluation with ``use_fused_moments=0`` or ``dropout > 0``), K2's samples
+with the materialized Jacobian and the update rule with
+``use_implicit_lm=0``, ``using_weight`` (which stays on K2 for Ford, JAX
+``ford.py:216-224``) or another ``Optimizer``: ``lm_update``,
+``gn_update`` (GN), ``sgd_update_l1`` (SGD) or the ``NNrefine`` head
+(NN); on the gather path (``use_banded_warp=0``) at every pixel of the
+kept rows, ``grid_sample_derivs`` and ``lm_update_implicit_pixel_norm``
+(JAX ``ford.py:198-215``), or ``grid_sample`` with the Jacobian and the
+update rule.  Only the bottom half of the ground rows enters the update;
+loss methods 1-3 gather every row in training.  No update rule reads the
+projected satellite confidence, so the port does not project it (JAX
+transforms it, 1/(1 + c), and drops it).  ``compute_dtype="bfloat16"`` gives bf16
 features with the rules of KITTI S2GP (``feature_dtype``: float32
 parameters cast at each conv, a bf16 banded map, float32 target rows).
 Ford keeps the reference's differences from KITTI:
@@ -44,8 +50,9 @@ rigs in separate batches.  A caller that must not read the rig on the
 host (an exported program) fixes the layout with ``forward``'s ``layout``.
 
 ``state_dict`` keys follow the reference: ``SatFeatureNet.*``,
-``GrdFeatureNet.*``, ``damping``.  ``check_supported`` refuses every option
-the port does not carry for Ford with ``NotImplementedError``.
+``GrdFeatureNet.*``, ``damping`` (and ``NNrefine.*``).  ``check_supported``
+refuses what the port does not carry for Ford yet with
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -58,27 +65,29 @@ from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import ford as fgeom
 from highlyaccurate_tpu_torch.geometry.ford import sample_layouts
 from highlyaccurate_tpu_torch.models.lm_s2gp import S2GPBase, _level_hw
-from highlyaccurate_tpu_torch.solver.updates import LMConfig
+from highlyaccurate_tpu_torch.solver.updates import (LMConfig, gn_update,
+                                                     sgd_update_l1)
 
 
 def check_supported(cfg: Config):
     """Raise ``NotImplementedError`` naming the first option of a Ford
-    ``cfg`` that this port does not carry yet."""
+    ``cfg`` that this port does not carry yet: ``estimate_depth``,
+    ``use_gt_depth`` and a projection other than geo (queue A5, part 2).
+    An ``Optimizer`` Ford has no update rule for (ADAM) raises
+    ``ValueError``, as the JAX model does (``ford.py:251-252``)."""
     refused = [
-        (cfg.Optimizer != "LM", f"Optimizer={cfg.Optimizer!r}"),
         (bool(cfg.estimate_depth), "estimate_depth"),
         (bool(cfg.use_gt_depth), "use_gt_depth"),
-        (bool(cfg.using_weight), "using_weight"),
-        (cfg.dropout > 0, "dropout > 0"),
-        (bool(cfg.level_first), "level_first"),
         (cfg.proj != "geo", f"proj={cfg.proj!r}"),
     ]
     for bad, name in refused:
         if bad:
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch for "
-                "Ford yet (it carries LM_S2GP_Ford geo LM evaluation and "
-                "training)")
+                "Ford yet (it carries LM_S2GP_Ford with the geo "
+                "projection)")
+    if cfg.Optimizer not in ("LM", "GN", "SGD", "NN"):
+        raise ValueError(cfg.Optimizer)
 
 
 def ford_rays(cfg: Config):
@@ -104,6 +113,8 @@ def kernel_layout(R_FL) -> bool:
 class LMS2GPFord(S2GPBase):
     """Ford-AV model, LM_S2GP_Ford."""
 
+    _weight_gathers = False
+
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         check_supported(cfg)
@@ -111,8 +122,18 @@ class LMS2GPFord(S2GPBase):
             cfg, LMConfig(active_dims=(0, 1, 2),
                           train_damping=bool(cfg.train_damping),
                           damping=cfg.damping,
-                          use_hessian=bool(cfg.use_hessian), reinit=True),
+                          use_hessian=bool(cfg.use_hessian), reinit=True,
+                          using_weight=bool(cfg.using_weight),
+                          dropout=cfg.dropout),
             (1, 3), ford_rays(cfg), device)
+
+    def _other_update(self, pose, sat, grd, conf, jac, generator, t: int,
+                      adam):
+        """Ford's GN and L1-SGD steps (JAX ``ford.py:245-248``)."""
+        if self.cfg.Optimizer == "GN":
+            return gn_update(pose, sat, grd, conf, jac, self.lm_cfg,
+                             generator)
+        return sgd_update_l1(pose, sat, grd, jac, self.lm_cfg)
 
     def _uv_jac(self, pose, points, A: int, geo: tuple, jac: bool = True):
         cfg = self.cfg
@@ -138,7 +159,7 @@ class LMS2GPFord(S2GPBase):
         round (``layout`` where the caller fixes it, else read from R_FL
         on the host; the gather sampler takes any mix of rigs)."""
         swap = (layout if layout is not None
-                else kernel_layout(R_FL) if banded and self.cfg.use_banded_warp
+                else kernel_layout(R_FL) if banded and not self._gather
                 else None)
         R_FL, T_FL = (t.to(self.device, torch.float32) for t in (R_FL, T_FL))
         return (R_FL, T_FL, satmap_sidelength_meters, swap)
@@ -159,8 +180,9 @@ class LMS2GPFord(S2GPBase):
         per-sample [B] tensor); init_pose [B, 3] normalized warm start
         (default zero; hypothesis 0 of a multi-start sweep); generator: the
         ``torch.Generator`` (on the model's device) or ``PresetDraws`` of
-        the multi-start initial poses and of the re-init draw, which every
-        round makes; ``layout`` fixes the banded kernel layout
+        the multi-start initial poses, then per round of the LM dropout's
+        keep-set and of the re-init (LM and GN only, as in JAX
+        ``ford.py:150``); ``layout`` fixes the banded kernel layout
         (``kernel_layout``'s ``swap``) instead of reading it from R_FL.
 
         mode 'test' -> (shift_lat, shift_lon, theta) each [B], and with
@@ -172,20 +194,23 @@ class LMS2GPFord(S2GPBase):
         longitudinal, heading)), differentiable with respect to the
         parameters.
         """
-        geo = self._geo(R_FL, T_FL, satmap_sidelength_meters, layout=layout)
+        # loss methods 1-3 gather in every training round
+        banded = not (mode == "train" and self.cfg.loss_method > 0)
+        geo = self._geo(R_FL, T_FL, satmap_sidelength_meters, banded,
+                        layout)
         if mode == "test":
             # Ford: u is lateral, v longitudinal
             pose, cov = self._test(sat_map, grd_img, init_pose, generator,
                                    with_info, geo)
             out = (pose[:, 0], pose[:, 1], pose[:, 2])
             return out + (cov,) if with_info else out
-        traj = self._trajectory(sat_map, grd_img, mode, init_pose, gt_pose,
-                                generator, geo)
+        traj, lists = self._trajectory(sat_map, grd_img, mode, init_pose,
+                                       gt_pose, generator, geo)
         # Ford: u is lateral, v longitudinal
         gt = (None,) * 3 if gt_pose is None else tuple(
             gt_pose[:, i].float() for i in range(3))
         return self._outputs(mode, traj[..., 0], traj[..., 1], traj[..., 2],
-                             *gt)
+                             *gt, lists)
 
     def project_at_pose(self, sat_map, grd_img, satmap_sidelength_meters,
                         R_FL, T_FL, pred_pose, gt_pose):

@@ -1,5 +1,5 @@
 """LM_G2SP evaluation and training (port of
-``highlyaccurate_tpu/models/lm_g2sp.py:44-162, 206-293, 402-482``).
+``highlyaccurate_tpu/models/lm_g2sp.py:44-162, 206-293, 366-482``).
 
 Two VGGUnet branches give the satellite and ground feature pyramids; then
 N_iters x levels solver rounds refine the pose, iteration-major.  G2SP
@@ -34,6 +34,13 @@ slot takes one of two samplers, chosen per slot as JAX chooses per level
   Jacobian and ``lm_update`` without normalization.  A 32-row ground
   input, whose coarse map has 4 rows, mixes the two within one forward.
 
+G2SP has one update rule, LM: ``using_weight`` and every other
+``Optimizer`` leave both fast paths (``fast_paths``, JAX
+``lm_g2sp.py:230-234, 263-264``) for that last branch, the gather
+``lm_update`` on the whole grid, weighted with ``using_weight`` by the
+ground confidence projected with the features.  Dropout and
+``level_first`` change nothing in G2SP, as in JAX.
+
 Evaluation (mode ``"test"``) can also run the multi-start sweep
 (``pose_hypotheses > 1``, ``LMG2SP.hypotheses``: the hypotheses ride the
 batch axis through the same per-slot samplers, then the normalized
@@ -48,9 +55,9 @@ stay in line order; the satellite target is passed as a transposed view of
 the same columns, made once per level per forward (outside the rounds), so
 nothing is copied to sat-grid order: K6 takes the view's strides.
 
-``check_supported`` refuses every option this port does not carry for G2SP
-with ``NotImplementedError``; ``loss_method`` other than 0 raises
-``ValueError`` in training, as in the JAX package.
+``check_supported`` refuses what this port does not carry for G2SP yet
+(``proj`` other than geo) with ``NotImplementedError``; ``loss_method``
+other than 0 raises ``ValueError`` in training, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -89,27 +96,35 @@ SLOT_CHANNELS = (256, 128, 64, 16)  # VGGUnet feature channels per slot
 
 def check_supported(cfg: Config):
     """Raise ``NotImplementedError`` naming the first option of a G2SP
-    ``cfg`` that this port does not carry yet."""
+    ``cfg`` that this port does not carry yet: a projection other than geo
+    (queue A5, part 2)."""
     refused = [
         (cfg.direction != "G2SP", f"direction={cfg.direction!r}"),
         (cfg.proj != "geo", f"proj={cfg.proj!r}"),
-        (cfg.Optimizer != "LM", f"Optimizer={cfg.Optimizer!r}"),
-        (bool(cfg.using_weight), "using_weight"),
     ]
     for bad, name in refused:
         if bad:
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch for "
-                "G2SP yet (it carries KITTI G2SP geo LM evaluation and "
-                "training)")
+                "G2SP yet (it carries KITTI G2SP with the geo projection)")
+
+
+def fast_paths(cfg: Config) -> bool:
+    """Whether the rounds may take the fast paths (the projective-line
+    kernels, the gather path's implicit update): only the unweighted LM
+    update (JAX ``lm_g2sp.py:230-234, 263-264``).  G2SP has no other update
+    rule: ``using_weight`` and any other ``Optimizer`` run the gather
+    ``lm_update`` on the whole satellite grid."""
+    return cfg.Optimizer == "LM" and not cfg.using_weight
 
 
 def projline_slots(cfg: Config) -> dict:
     """Per slot of ``cfg.level``, whether its rounds run the
     projective-line kernels (else the gather sampler): the banded path is
-    on and ``projline_supported`` takes the slot's ground map (JAX
-    ``lm_g2sp.py:230-249``)."""
-    banded = bool(cfg.use_banded_warp) and bool(cfg.banded_bf16_map)
+    on, the fast paths are open (``fast_paths``) and ``projline_supported``
+    takes the slot's ground map (JAX ``lm_g2sp.py:230-249``)."""
+    banded = (bool(cfg.use_banded_warp) and bool(cfg.banded_bf16_map)
+              and fast_paths(cfg))
     return {slot: banded and projline_supported(
         *_level_hw(cfg, slot), SLOT_CHANNELS[slot])
         for slot in LEVEL_SLOTS[cfg.level]}
@@ -136,8 +151,10 @@ class LMG2SP(nn.Module):
         self.lm_cfg = LMConfig(
             active_dims=(0, 1, 2), train_damping=bool(cfg.train_damping),
             damping=cfg.damping, use_hessian=False, reinit=False,
-            raw_damping=True, normalize=False)
+            raw_damping=True, normalize=False,
+            using_weight=bool(cfg.using_weight))
         self._projline = projline_slots(cfg)
+        self._implicit = bool(cfg.use_implicit_lm) and fast_paths(cfg)
         # per slot: the first satellite column j0 and the ground points of
         # the kept columns in line order [V, A, 4]; rows 0 and 1 fix each
         # line (its points are affine in the row index); with
@@ -159,7 +176,7 @@ class LMG2SP(nn.Module):
                 np.ascontiguousarray(xyz1[0])), persistent=False)
             self.register_buffer(f"dx_{slot}", torch.from_numpy(
                 np.ascontiguousarray(xyz1[1] - xyz1[0])), persistent=False)
-            if (not (self._projline[slot] or cfg.use_implicit_lm)
+            if (not (self._projline[slot] or self._implicit)
                     or slot == self._slots[-1]):
                 self.register_buffer(f"grid_{slot}", torch.from_numpy(
                     geom.warp_sat2real(A)), persistent=False)
@@ -181,27 +198,32 @@ class LMG2SP(nn.Module):
             "supported by highlyaccurate_tpu_torch yet")
 
     def _solver_round(self, pose, slot: int, grd_map, target, camera_k,
-                      train: bool = False):
+                      train: bool = False, conf=None):
         """One (iteration, level) round on the slot's sampler.
 
         grd_map [B, Hg, Wg, C] ground features (bf16 in a projective-line
         evaluation, else in their own dtype); target the satellite
         features in float32: of the kept columns in line order [B, V, A, C]
-        (a view), or on a ``use_implicit_lm=0`` gather slot the whole grid
-        [B, A, A, C]; camera_k [B, 3, 3] raw K.
+        (a view), or on a gather slot without the fast paths
+        (``use_implicit_lm=0``, ``using_weight``, another ``Optimizer``) the
+        whole grid [B, A, A, C]; camera_k [B, 3, 3] raw K; conf
+        [B, Hg, Wg, 1] the ground confidence, projected with the features
+        as the weight of ``using_weight`` (JAX ``lm_g2sp.py:286-292``).
         """
         cfg = self.cfg
         Hg, Wg = grd_map.shape[1:3]
         A = target.shape[2]
         ranges = self._ranges()
         if not self._projline[slot]:
-            if not cfg.use_implicit_lm:
+            if not self._implicit:
                 uv, duv, _ = geom.g2sp_uv_jac(
                     pose, getattr(self, f"grid_{slot}"), camera_k, Hg, Wg,
                     cfg.grd_h, cfg.grd_w, *ranges)        # [B, A, A, ...]
                 g_proj, jac = grid_sample(grd_map, uv, duv)
+                c_proj = (grid_sample(conf, uv)[0] if cfg.using_weight
+                          else None)
                 return lm_update(pose, g_proj, target, jac, self.damping,
-                                 self.lm_cfg, None)
+                                 self.lm_cfg, None, grd_conf=c_proj)
             uv, duv, _ = geom.g2sp_uv_jac(
                 pose, getattr(self, f"lines_{slot}"), camera_k, Hg, Wg,
                 cfg.grd_h, cfg.grd_w, *ranges)            # [B, V, A, ...]
@@ -249,7 +271,7 @@ class LMG2SP(nn.Module):
         return grid_sample(grd_feat, uv)[0], mask
 
     def hypotheses(self, sat_feats, grd_feats, camera_k, init_pose,
-                   generator):
+                   generator, grd_confs=None):
         """The multi-start sweep (JAX ``_multi_hypothesis_from_feats`` up
         to its argmin) on the feature pyramids of B samples:
         ``pose_hypotheses`` = P initial poses per sample
@@ -258,17 +280,20 @@ class LMG2SP(nn.Module):
         as a single start), then each final pose is scored by the
         normalized residual of the finest level, the projected ground
         features against the satellite features under the in-front mask
-        (``normalized_cost``).  camera_k [B, 3, 3].  Returns the final
-        poses [B, P, 3] and the costs [B, P]."""
+        (``normalized_cost``).  camera_k [B, 3, 3]; grd_confs the ground
+        confidence pyramid (read with ``using_weight``).  Returns the
+        final poses [B, P, 3] and the costs [B, P]."""
         cfg = self.cfg
         B, P = camera_k.shape[0], cfg.pose_hypotheses
         pose0 = multi_starts(generator, B, P, init_pose, cfg.rotation_range,
                              self.device)
         sat_t = [f.repeat_interleave(P, 0) for f in sat_feats]
         grd_t = [f.repeat_interleave(P, 0) for f in grd_feats]
+        conf_t = (None if grd_confs is None
+                  else [c.repeat_interleave(P, 0) for c in grd_confs])
         k_t = camera_k.repeat_interleave(P, 0)
-        final = self._run_rounds(pose0, sat_t, grd_t, k_t,
-                                 train=False)[:, -1, -1]
+        final = self._run_rounds(pose0, sat_t, grd_t, k_t, train=False,
+                                 grd_confs=conf_t)[:, -1, -1]
         g_proj, m = self._project_grd_to_map(grd_t[-1], final, k_t)
         cost = normalized_cost(g_proj, sat_t[-1] * m[..., None])
         return final.reshape(B, P, 3), cost.reshape(B, P)
@@ -278,8 +303,11 @@ class LMG2SP(nn.Module):
         from the G2SP objective's Gauss-Newton information (JAX
         ``_pose_info``): the gather sampler's values and derivatives over
         the whole finest satellite grid, the unnormalized residual
-        grd_proj - sat with an all-ones mask, all three DoF."""
+        grd_proj - sat with an all-ones mask, all three DoF.  Refuses
+        ``using_weight`` with ``ValueError``, as JAX does."""
         cfg = self.cfg
+        if cfg.using_weight:
+            raise ValueError("with_info does not support using_weight=1")
         A = sat_feats[-1].shape[1]
         Hg, Wg = grd_feats[-1].shape[1:3]
         uv, duv, _ = geom.g2sp_uv_jac(
@@ -292,8 +320,10 @@ class LMG2SP(nn.Module):
         return pose_covariance(hess, rss, n_res, (0, 1, 2))
 
     def _run_rounds(self, pose0, sat_feats, grd_feats, camera_k,
-                    train: bool):
-        """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]."""
+                    train: bool, grd_confs=None):
+        """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]
+        (G2SP has no ``level_first``, as in JAX); grd_confs: the ground
+        confidence pyramid, read with ``using_weight``."""
         cfg = self.cfg
         maps, targets = [], []
         for lvl, slot in enumerate(self._slots):
@@ -306,12 +336,13 @@ class LMG2SP(nn.Module):
             sat = sat_feats[lvl].to(torch.float32)
             j0 = self._col_start[slot]
             targets.append(sat[:, :, j0:].transpose(1, 2)
-                           if projline or cfg.use_implicit_lm else sat)
+                           if projline or self._implicit else sat)
         pose, traj = pose0, []
         for _ in range(cfg.N_iters):
             for lvl, slot in enumerate(self._slots):
-                pose = self._solver_round(pose, slot, maps[lvl],
-                                          targets[lvl], camera_k, train)
+                pose = self._solver_round(
+                    pose, slot, maps[lvl], targets[lvl], camera_k, train,
+                    grd_confs[lvl] if cfg.using_weight else None)
                 traj.append(pose)
         return torch.stack(traj, dim=1).reshape(pose0.shape[0], cfg.N_iters,
                                                 len(self._slots), 3)
@@ -363,10 +394,11 @@ class LMG2SP(nn.Module):
         with ``with_info`` also its covariance [B, 3, 3], else None."""
         B = sat_map.shape[0]
         camera_k = camera_k.to(torch.float32)
-        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        sat_feats, _, grd_feats, grd_confs = self.extract_features(sat_map,
+                                                                   grd_img)
         if self.cfg.pose_hypotheses > 1:
             final, cost = self.hypotheses(sat_feats, grd_feats, camera_k,
-                                          init_pose, generator)
+                                          init_pose, generator, grd_confs)
             pose = final[torch.arange(B, device=final.device),
                          cost.argmin(1)]
         else:
@@ -374,7 +406,8 @@ class LMG2SP(nn.Module):
                                  device=self.device)
                      if init_pose is None else init_pose.to(torch.float32))
             pose = self._run_rounds(pose0, sat_feats, grd_feats, camera_k,
-                                    train=False)[:, -1, -1]
+                                    train=False,
+                                    grd_confs=grd_confs)[:, -1, -1]
         cov = (self._pose_info(sat_feats, grd_feats, pose, camera_k)
                if with_info else None)
         return pose, cov
@@ -382,12 +415,13 @@ class LMG2SP(nn.Module):
     def _forward(self, sat_map, grd_img, camera_k, mode, init_pose, gt_pose):
         cfg = self.cfg
         B = sat_map.shape[0]
-        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        sat_feats, _, grd_feats, grd_confs = self.extract_features(sat_map,
+                                                                   grd_img)
         pose0 = (torch.zeros(B, 3, dtype=torch.float32, device=self.device)
                  if init_pose is None else init_pose.to(torch.float32))
         traj = self._run_rounds(pose0, sat_feats, grd_feats,
                                 camera_k.to(torch.float32),
-                                train=mode == "train")
+                                train=mode == "train", grd_confs=grd_confs)
         shift_lats, shift_lons, thetas = traj[..., 1], traj[..., 0], traj[..., 2]
         if mode == "trajectory":
             return shift_lats, shift_lons, thetas

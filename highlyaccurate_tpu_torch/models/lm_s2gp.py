@@ -1,29 +1,36 @@
 """LM_S2GP evaluation and training (port of
-``highlyaccurate_tpu/models/lm_s2gp.py:54-143, 146-186, 233-304,
-306-470, 559-577, 666-855``), and the base it shares with the Ford model
+``highlyaccurate_tpu/models/lm_s2gp.py:54-143, 146-186, 233-473,
+559-577, 666-855``), and the base it shares with the Ford model
 (``models/ford.py``).
 
 Two VGGUnet branches give the satellite and ground feature pyramids; then
-N_iters x levels solver rounds refine the pose, iteration-major.  Only the
-bottom half of the ground rows enters the solver (the sky crop).  Each
-round takes one of the JAX package's branches (``S2GPBase._solver_round``):
+N_iters x levels solver rounds refine the pose, iteration-major, or with
+``level_first`` every iteration of the coarsest level first
+(``round_order``).  Only the bottom half of the ground rows enters the
+solver (the sky crop).  Each round takes one of the JAX package's branches
+(``S2GPBase._solver_round``):
 
 * banded (``use_banded_warp``, the default): ``s2gp_uv_jac`` at ground
   columns u = 0, 1 of each kept row (the row's satellite line is affine in
   u, so two points fix it), then ``banded_project``:
-  - evaluation with ``use_fused_moments`` (the default): K1
-    (``ops/banded_warp.py:banded_moments``) -> per-row moments ->
-    ``lm_update_from_moments``;
-  - training, or evaluation with ``use_fused_moments=0``: the
-    differentiable sampler K2 / K3 (``banded_sample``) -> out, dx, dy ->
-    ``lm_update_implicit``;
-  - ``use_implicit_lm=0``: K2's samples with the row-affine Jacobian
-    materialized -> ``lm_update``;
+  - LM evaluation with ``use_fused_moments`` (the default) and no
+    dropout: K1 (``ops/banded_warp.py:banded_moments``) -> per-row
+    moments -> ``lm_update_from_moments``;
+  - LM training, or evaluation with ``use_fused_moments=0`` or
+    ``dropout > 0``: the differentiable sampler K2 / K3
+    (``banded_sample``) -> out, dx, dy -> ``lm_update_implicit`` (the
+    dropout as a mask);
+  - ``use_implicit_lm=0``, or ``Optimizer`` SGD, ADAM or NN: K2's samples
+    with the row-affine Jacobian materialized (none for NN) -> the
+    update rule (``lm_update``, ``sgd_update``, ``adam_update``, or the
+    ``NNrefine`` head's step);
 * gather (``use_banded_warp=0``, the faithful default of ``--test 1
-  --import_pth``): ``s2gp_uv_jac`` at every pixel of the kept rows, the
+  --import_pth``; and ``using_weight``, whose update reads the target
+  confidence): ``s2gp_uv_jac`` at every pixel of the kept rows, the
   gather sampler (``ops/grid_sample.py``) on the features in their own
   dtype, then ``lm_update_implicit_pixel_norm`` or, with
-  ``use_implicit_lm=0``, ``lm_update`` on the materialized Jacobian.
+  ``use_implicit_lm=0``, ``using_weight`` or another ``Optimizer``, the
+  update rule on the materialized Jacobian.
 
 Evaluation (mode ``"test"``) can also run the multi-start sweep
 (``pose_hypotheses > 1``, ``S2GPBase.hypotheses``: every hypothesis rides
@@ -33,18 +40,21 @@ the one with the smallest normalized finest-level residual wins) and, with
 (``S2GPBase._pose_info``: one gather projection at the finest level and
 ``lm_information`` / ``pose_covariance``; no hand kernel).
 
-Training scores the trajectory with ``loss_func`` method 0.  The
-satellite map goes to the banded kernels as a transposed view (kernel y =
-sat u, kernel x = sat v).  K1 reads a map cast once per forward to the map
-dtype, since it does not change across rounds; K2 casts inside its
-autograd function, so the map gradient stays float32.  With
-``compute_dtype="bfloat16"`` the features are bf16 (``VGGUnet``), the
-banded map is bf16 as ``banded_bf16_map`` makes it, and the target rows are
-read in float32, as in JAX.
+Training scores the trajectory with ``loss_func``.  Loss methods 1-3 read
+every round's projection of the whole ground map, so their rounds gather
+every row and crop the sky before the update (no hand kernel), and each
+level is projected at the gt pose too.  The satellite map goes to the
+banded kernels as a transposed view (kernel y = sat u, kernel x = sat v).
+K1 reads a map cast once per forward to the map dtype, since it does not
+change across rounds; K2 casts inside its autograd function, so the map
+gradient stays float32.  With ``compute_dtype="bfloat16"`` the features
+are bf16 (``VGGUnet``), the banded map is bf16 as ``banded_bf16_map``
+makes it, and the target rows are read in float32, as in JAX.
 
-``check_supported`` refuses every option this port does not carry yet with
-``NotImplementedError``; ``loss_method`` other than 0 is refused when a
-training forward is called.
+The random numbers of a forward (``Draws``) are, in order: the multi-start
+initial poses, then per round the dropout's (``dropout_keep``) and the
+re-init's.  ``check_supported`` refuses what this port does not carry yet
+(``proj`` other than geo, ``use_gt_depth``) with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -64,30 +74,31 @@ from highlyaccurate_tpu_torch.ops.banded_warp import (banded_moments,
                                                       default_rb)
 from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
                                                       grid_sample_derivs)
+from highlyaccurate_tpu_torch.models.nnrefine import NNrefine
 from highlyaccurate_tpu_torch.solver.updates import (
-    LMConfig, lm_information, lm_update, lm_update_from_moments,
+    LMConfig, adam_update, lm_information, lm_update, lm_update_from_moments,
     lm_update_implicit, lm_update_implicit_pixel_norm, pose_covariance,
-    uniform_draws)
+    sgd_update, uniform_draws)
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
 def check_supported(cfg: Config):
     """Raise ``NotImplementedError`` naming the first option of ``cfg`` that
-    this port does not carry yet."""
+    this port does not carry yet: a projection other than geo and
+    ``use_gt_depth`` (queue A5, part 2); an ``Optimizer`` KITTI S2GP has
+    no update rule for raises ``ValueError``, as the JAX model does."""
     refused = [
         (cfg.direction != "S2GP", f"direction={cfg.direction!r}"),
         (cfg.proj != "geo", f"proj={cfg.proj!r}"),
-        (cfg.Optimizer != "LM", f"Optimizer={cfg.Optimizer!r}"),
-        (bool(cfg.using_weight), "using_weight"),
         (bool(cfg.use_gt_depth), "use_gt_depth"),
-        (cfg.dropout > 0, "dropout > 0"),
-        (bool(cfg.level_first), "level_first"),
     ]
     for bad, name in refused:
         if bad:
             raise NotImplementedError(
                 f"{name} is not supported by highlyaccurate_tpu_torch yet "
-                "(it carries KITTI S2GP geo LM evaluation and training)")
+                "(it carries KITTI S2GP with the geo projection)")
+    if cfg.Optimizer not in ("LM", "SGD", "ADAM", "NN"):
+        raise ValueError(f"unknown Optimizer {cfg.Optimizer}")
 
 
 def feature_dtype(cfg: Config) -> torch.dtype:
@@ -216,13 +227,45 @@ def normalized_cost(a, b) -> torch.Tensor:
 
 def eval_draws_per_image(cfg: Config, lm_cfg: LMConfig) -> int:
     """How many uniform numbers one image's evaluation forward draws: its
-    multi-start initial poses, then two per round of the re-init (only a
-    solve over all three DoF with ``reinit`` draws), each for every
-    hypothesis.  ``PresetDraws`` holds that many per image."""
+    multi-start initial poses, then two per round of the re-init, each for
+    every hypothesis.  Only the LM update of a solve over all three DoF
+    with ``reinit``, and Ford's GN update, re-init (and draw); SGD, ADAM
+    and NN draw nothing.  ``PresetDraws`` holds that many per image, and
+    ``eval_draws_per_batch`` more per batch."""
     P = cfg.pose_hypotheses
     rounds = cfg.N_iters * len(LEVEL_SLOTS[cfg.level])
-    reinit = lm_cfg.reinit and len(lm_cfg.active_dims) == 3
+    reinit = ((cfg.Optimizer == "LM" and lm_cfg.reinit
+               and len(lm_cfg.active_dims) == 3) or cfg.Optimizer == "GN")
     return (3 * P if P > 1 else 0) + (2 * P * rounds if reinit else 0)
+
+
+def eval_draws_per_batch(cfg: Config) -> int:
+    """How many uniform numbers an S2GP or Ford evaluation forward draws
+    for its dropout, whatever its batch: with ``dropout > 0`` and the LM
+    update, one per pixel of a level's kept rows per round
+    (``dropout_keep``: one keep-set per round for the batch); else 0.
+    Drawn in each round before its re-init numbers.  G2SP drops no
+    pixel."""
+    if not (cfg.dropout > 0 and cfg.Optimizer == "LM"
+            and cfg.direction == "S2GP"):
+        return 0
+    kept = [(h - h // 2) * w for h, w in
+            (_level_hw(cfg, slot) for slot in LEVEL_SLOTS[cfg.level])]
+    return cfg.N_iters * sum(kept)
+
+
+def round_order(cfg: Config):
+    """The (iteration, level index) of each round in the order they run:
+    iteration-major, or with ``level_first`` every iteration of a level
+    before the next level (JAX ``_run_rounds``).  A round's index t in
+    this order is the one ADAM's bias correction reads (JAX
+    ``lm_s2gp.py:687-688``)."""
+    n_levels = len(LEVEL_SLOTS[cfg.level])
+    if cfg.level_first:
+        return [(it, lvl) for lvl in range(n_levels)
+                for it in range(cfg.N_iters)]
+    return [(it, lvl) for it in range(cfg.N_iters)
+            for lvl in range(n_levels)]
 
 
 class S2GPBase(nn.Module):
@@ -233,31 +276,45 @@ class S2GPBase(nn.Module):
     (the satellite uv of ground points and their d(uv)/d(pose)) and
     ``_swap``, the kernel layout (``banded_project``'s ``swap``)."""
 
+    # whether ``using_weight`` takes the rounds off the banded path (KITTI
+    # S2GP: the weighted update projects on the gather sampler, JAX
+    # lm_s2gp.py:354-358; Ford keeps K2, ford.py:216-224)
+    _weight_gathers = True
+
     def _init_common(self, cfg: Config, lm_cfg: LMConfig, damping_shape,
                      rays, device):
-        """The networks, the damping, the solver settings and, per slot of
-        ``cfg.level``, from ``rays`` (the per-slot (xyz [H, W, 3], mask
-        [H, W], ...)) the buffers of the kept rows: ``mask_{slot}``, and
-        ``rows01_{slot}`` (their u = 0, 1 points [V, 2, 3]) for the banded
-        path or ``xyz_{slot}`` (every point [V, W, 3]) for the gather
-        path, and the finest slot's ``xyz`` in any case (the multi-start
-        score and the covariance gather there)."""
+        """The networks (and ``NNrefine`` for ``Optimizer="NN"``), the
+        damping, the solver settings and, per slot of ``cfg.level``, from
+        ``rays`` (the per-slot (xyz [H, W, 3], mask [H, W], ...)) the
+        buffers of the kept rows: ``mask_{slot}``, and ``rows01_{slot}``
+        (their u = 0, 1 points [V, 2, 3]) for the banded path or
+        ``xyz_{slot}`` (every point [V, W, 3]) for the gather path, the
+        finest slot's ``xyz`` in any case (the multi-start score and the
+        covariance gather there), and with ``loss_method > 0`` every row's
+        ``rays_{slot}`` and ``raymask_{slot}`` (the rounds of such a
+        training forward gather the whole map)."""
         self.cfg = cfg
         dev = resolve_device(device)
         self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
         self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
         self.damping = nn.Parameter(torch.zeros(damping_shape))
+        if cfg.Optimizer == "NN":
+            self.NNrefine = NNrefine(feature_dtype(cfg))
         self._slots = level_slots(cfg)
         self._rays = rays
         self.lm_cfg = lm_cfg
+        self._gather = not cfg.use_banded_warp or (
+            bool(cfg.using_weight) and self._weight_gathers)
         for slot in self._slots:
             xyz, mask = rays[slot][:2]
             half = xyz.shape[0] // 2
             buffers = {"mask": mask[half:]}
-            if cfg.use_banded_warp:
+            if not self._gather:
                 buffers["rows01"] = xyz[half:, :2]
-            if not cfg.use_banded_warp or slot == self._slots[-1]:
+            if self._gather or slot == self._slots[-1]:
                 buffers["xyz"] = xyz[half:]
+            if cfg.loss_method > 0:
+                buffers.update(rays=xyz, raymask=mask)
             for name, a in buffers.items():
                 self.register_buffer(f"{name}_{slot}", torch.from_numpy(
                     np.ascontiguousarray(a)), persistent=False)
@@ -296,103 +353,158 @@ class S2GPBase(nn.Module):
 
     def _fused_eval(self, train: bool) -> bool:
         """Whether an evaluation round runs K1 (JAX: the banded implicit
-        branch with ``fused_eval``)."""
+        branch with ``fused_eval``, for the unweighted LM update without
+        dropout)."""
         cfg = self.cfg
-        return (not train and bool(cfg.use_banded_warp)
-                and bool(cfg.use_implicit_lm) and bool(cfg.use_fused_moments))
+        return (not train and not self._gather and cfg.Optimizer == "LM"
+                and not cfg.using_weight and cfg.dropout == 0
+                and bool(cfg.use_implicit_lm)
+                and bool(cfg.use_fused_moments))
 
     def _solver_round(self, pose, slot: int, sat_feat, grd_rows, generator,
-                      train: bool = False, geo: tuple = ()):
+                      train: bool = False, geo: tuple = (), conf_rows=None,
+                      t: int = 0, adam=None, aux=None):
         """One (iteration, level) round, the branch the JAX package takes
-        for this config (module docstring).  sat_feat [B, A, A, C] (the map
-        dtype for K1, else the features' own dtype); grd_rows [B, V, W, C]
-        the kept target rows in float32; ``geo`` holds the model's per-call
-        geometry inputs for ``_uv_jac``."""
+        for this config (module docstring); returns the new pose.
+
+        sat_feat [B, A, A, C] (the map dtype for K1, else the features'
+        own dtype); grd_rows [B, V, W, C] the kept target rows in float32;
+        ``geo`` the model's per-call geometry inputs for ``_uv_jac``;
+        conf_rows [B, V, W, 1] their confidence, the LM / GN weight with
+        ``using_weight``; t the round's index (``round_order``) and adam
+        the [m, v] list of ``Optimizer="ADAM"``, updated in place; ``aux``
+        a list: the round gathers every ground row (loss methods 1-3) and
+        appends its masked projection [B, H, W, C] and uv / A
+        [B, H, W, 2]."""
         cfg = self.cfg
         mask = getattr(self, f"mask_{slot}")
         A = sat_feat.shape[1]
-        if not cfg.use_banded_warp:
+        lm = cfg.Optimizer == "LM"
+        implicit = (lm and bool(cfg.use_implicit_lm)
+                    and not cfg.using_weight and aux is None)
+        with_jac = cfg.Optimizer != "NN"
+        if not self._gather and aux is None:
+            uv01, duv01, swap = self._line_uv(pose, slot, A, geo)
+            if self._fused_eval(train):
+                M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01,
+                                             mask, grd_rows, swap=swap)
+                return lm_update_from_moments(pose, M, P0s, dPs,
+                                              self.damping, self.lm_cfg,
+                                              generator)
+            out, du, dv, P0, dP = banded_project(cfg, sat_feat, uv01, duv01,
+                                                 mask, swap=swap)
+            if implicit:
+                return lm_update_implicit(pose, out, du, dv, grd_rows, mask,
+                                          P0, dP, self.damping, self.lm_cfg,
+                                          generator)
+            jac = None
+            if with_jac:
+                # the row-affine Jacobian materialized: duv = P0 + u * dP
+                u = torch.arange(mask.shape[1], dtype=torch.float32,
+                                 device=mask.device)
+                duv = (P0[:, :, None]
+                       + u[None, None, :, None, None] * dP[:, :, None])
+                jac = (du[..., None] * duv[:, :, :, None, 0, :]
+                       + dv[..., None] * duv[:, :, :, None, 1, :])
+        elif implicit:
             uv, duv = self._uv_jac(pose, getattr(self, f"xyz_{slot}"), A,
                                    geo)
-            if cfg.use_implicit_lm:
-                out, dx, dy = grid_sample_derivs(sat_feat, uv)
-                return lm_update_implicit_pixel_norm(
-                    pose, out, dx, dy, grd_rows, mask[None], duv,
-                    self.damping, self.lm_cfg, generator)
+            out, dx, dy = grid_sample_derivs(sat_feat, uv)
+            return lm_update_implicit_pixel_norm(
+                pose, out, dx, dy, grd_rows, mask[None], duv, self.damping,
+                self.lm_cfg, generator)
+        else:
+            points = getattr(self, f"xyz_{slot}" if aux is None
+                             else f"rays_{slot}")
+            uv, duv = self._uv_jac(pose, points, A, geo, jac=with_jac)
             out, jac = grid_sample(sat_feat, uv, duv)
-            return self._lm_update(pose, out, jac, grd_rows, mask, generator)
-        uv01, duv01, swap = self._line_uv(pose, slot, A, geo)
-        if self._fused_eval(train):
-            M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01, mask,
-                                         grd_rows, swap=swap)
-            return lm_update_from_moments(pose, M, P0s, dPs, self.damping,
-                                          self.lm_cfg, generator)
-        out, du, dv, P0, dP = banded_project(cfg, sat_feat, uv01, duv01,
-                                             mask, swap=swap)
-        if cfg.use_implicit_lm:
-            return lm_update_implicit(pose, out, du, dv, grd_rows, mask, P0,
-                                      dP, self.damping, self.lm_cfg,
-                                      generator)
-        # the row-affine Jacobian materialized: duv(v, u) = P0 + u * dP
-        u = torch.arange(mask.shape[1], dtype=torch.float32,
-                         device=mask.device)
-        duv = P0[:, :, None] + u[None, None, :, None, None] * dP[:, :, None]
-        jac = (du[..., None] * duv[:, :, :, None, 0, :]
-               + dv[..., None] * duv[:, :, :, None, 1, :])
-        return self._lm_update(pose, out, jac, grd_rows, mask, generator)
-
-    def _lm_update(self, pose, out, jac, grd_rows, mask, generator):
-        """``lm_update`` on samples, target rows and Jacobian under the ray
-        mask [V, W] (JAX: the projection masks all three)."""
+            if aux is not None:
+                # the whole map for the loss, then the sky crop
+                full = getattr(self, f"raymask_{slot}")
+                aux.append((out * full[..., None],
+                            uv * full[..., None] / A))
+                V = mask.shape[0]
+                out, jac = out[:, -V:], None if jac is None else jac[:, -V:]
         m = mask[None, :, :, None]
-        return lm_update(pose, out * m, grd_rows * m, jac * m[..., None],
-                         self.damping, self.lm_cfg, generator)
+        sat = out * m
+        grd = grd_rows * m
+        conf = None if conf_rows is None else conf_rows * m
+        jac = None if jac is None else jac * m[..., None]
+        if lm:
+            return lm_update(pose, sat, grd, jac, self.damping, self.lm_cfg,
+                             generator, grd_conf=conf)
+        if cfg.Optimizer == "NN":
+            return pose + self.NNrefine(sat, grd)
+        return self._other_update(pose, sat, grd, conf, jac, generator, t,
+                                  adam)
+
+    def _other_update(self, pose, sat, grd, conf, jac, generator, t: int,
+                      adam):
+        """The family's update rules besides LM and NN on the masked,
+        sky-cropped samples, target rows, confidence and Jacobian."""
+        raise NotImplementedError
 
     def _run_rounds(self, pose0, sat_feats, grd_feats, generator,
-                    train: bool, geo: tuple = ()):
-        """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]."""
+                    train: bool, geo: tuple = (), grd_confs=None,
+                    aux=None):
+        """The (iteration x level) rounds in ``round_order`` ->
+        [B, N_iters, L, 3].  grd_confs: the ground confidence pyramid
+        (read with ``using_weight``); ``aux``: a dict of one list per level
+        index, which each round of the level fills (``_solver_round``)."""
         cfg = self.cfg
         # constant across rounds: K1's map cast (the banded sampler casts
         # inside its autograd function, the gather sampler reads the
-        # features in their own dtype) and the kept target rows, which the
-        # updates read in float32 (JAX's K1 wrapper casts them too)
+        # features in their own dtype), the kept target rows and their
+        # confidence, which the updates read in float32 (JAX's K1 wrapper
+        # casts them too)
         map_dtype = (torch.bfloat16 if bf16_map(cfg)
                      and self._fused_eval(train) else torch.float32)
-        sats, grds = [], []
+        sats, grds, confs = [], [], []
         for lvl in range(len(self._slots)):
-            sats.append(sat_feats[lvl] if not cfg.use_banded_warp
+            sats.append(sat_feats[lvl] if self._gather
                         else sat_feats[lvl].to(map_dtype))
             H = grd_feats[lvl].shape[1]
             grds.append(grd_feats[lvl][:, H // 2:].to(torch.float32)
                         .contiguous())
+            confs.append(grd_confs[lvl][:, H // 2:].to(torch.float32)
+                         if cfg.using_weight else None)
+        B, n = pose0.shape[0], len(self.lm_cfg.active_dims)
+        adam = [torch.zeros(B, n, device=pose0.device)] * 2
         pose, traj = pose0, []
-        for _ in range(cfg.N_iters):
-            for lvl, slot in enumerate(self._slots):
-                pose = self._solver_round(pose, slot, sats[lvl], grds[lvl],
-                                          generator, train, geo)
-                traj.append(pose)
-        return torch.stack(traj, dim=1).reshape(pose0.shape[0], cfg.N_iters,
-                                                len(self._slots), 3)
+        for t, (it, lvl) in enumerate(round_order(cfg)):
+            pose = self._solver_round(
+                pose, self._slots[lvl], sats[lvl], grds[lvl], generator,
+                train, geo, confs[lvl], t, adam,
+                None if aux is None else aux[lvl])
+            traj.append(pose)
+        traj = torch.stack(traj, dim=1)
+        L = len(self._slots)
+        if cfg.level_first:
+            return traj.reshape(B, L, cfg.N_iters, 3).transpose(1, 2)
+        return traj.reshape(B, cfg.N_iters, L, 3)
 
     def hypotheses(self, sat_feats, grd_feats, init_pose, generator,
-                   geo: tuple = ()):
+                   geo: tuple = (), grd_confs=None):
         """The multi-start sweep (JAX ``multi_hypothesis_test`` up to its
         argmin) on the feature pyramids of B samples: ``pose_hypotheses``
         = P initial poses per sample (``multi_starts``) ride the batch axis
         through the rounds of evaluation (K1 at batch B x P on the default
         path), then each final pose is scored by the normalized residual
         of the finest level's kept rows under the ray mask
-        (``normalized_cost``).  Returns the final poses [B, P, 3] and the
-        costs [B, P]."""
+        (``normalized_cost``).  ``grd_confs``: the ground confidence
+        pyramid, which ``using_weight`` reads.  Returns the final poses
+        [B, P, 3] and the costs [B, P]."""
         cfg = self.cfg
         B, P = sat_feats[0].shape[0], cfg.pose_hypotheses
         pose0 = multi_starts(generator, B, P, init_pose, cfg.rotation_range,
                              self.device)
         sat_t = [f.repeat_interleave(P, 0) for f in sat_feats]
         grd_t = [f.repeat_interleave(P, 0) for f in grd_feats]
+        conf_t = (None if grd_confs is None
+                  else [c.repeat_interleave(P, 0) for c in grd_confs])
         geo_t = self._tile_geo(geo, P)
         final = self._run_rounds(pose0, sat_t, grd_t, generator, False,
-                                 geo_t)[:, -1, -1]
+                                 geo_t, conf_t)[:, -1, -1]
         # the finest slot's kept pixels gathered at the final poses (JAX
         # _project with with_jac=False, row_start = H/2), both sides masked
         slot = self._slots[-1]
@@ -409,8 +521,12 @@ class S2GPBase(nn.Module):
         from the solver's Gauss-Newton information (JAX ``_pose_info``):
         the gather sampler's values and derivatives at the finest slot's
         kept pixels, ``lm_information`` with the normalized residual, and
-        ``pose_covariance`` over ``active_pose_dims``."""
+        ``pose_covariance`` over ``active_pose_dims``.  Refuses
+        ``using_weight`` with ``ValueError``, as JAX does: that solver
+        minimized a weighted residual, whose information this is not."""
         cfg = self.cfg
+        if cfg.using_weight:
+            raise ValueError("with_info does not support using_weight=1")
         slot = self._slots[-1]
         uv, duv = self._uv_jac(pose, getattr(self, f"xyz_{slot}"),
                                sat_feats[-1].shape[1], geo)
@@ -428,11 +544,12 @@ class S2GPBase(nn.Module):
         """Mode 'test': the final pose [B, 3] (pose order) of the single
         start or, with ``pose_hypotheses > 1``, of the winning hypothesis;
         with ``with_info`` also its covariance [B, 3, 3], else None."""
-        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        sat_feats, _, grd_feats, grd_confs = self.extract_features(sat_map,
+                                                                   grd_img)
         B = sat_map.shape[0]
         if self.cfg.pose_hypotheses > 1:
             final, cost = self.hypotheses(sat_feats, grd_feats, init_pose,
-                                          generator, geo)
+                                          generator, geo, grd_confs)
             pose = final[torch.arange(B, device=final.device),
                          cost.argmin(1)]
         else:
@@ -440,7 +557,7 @@ class S2GPBase(nn.Module):
                                  device=self.device)
                      if init_pose is None else init_pose.to(torch.float32))
             pose = self._run_rounds(pose0, sat_feats, grd_feats, generator,
-                                    False, geo)[:, -1, -1]
+                                    False, geo, grd_confs)[:, -1, -1]
         cov = (self._pose_info(sat_feats, grd_feats, pose, geo)
                if with_info else None)
         return pose, cov
@@ -467,37 +584,66 @@ class S2GPBase(nn.Module):
                     generator, geo=()):
         """Modes 'trajectory' and 'train': checks ``mode``, extracts the
         features and runs the single-start rounds (with autograd only in
-        training) -> the poses [B, N_iters, L, 3]."""
+        training) -> (the poses [B, N_iters, L, 3], the feature lists of
+        loss methods 1-3 or None).  A training forward with
+        ``loss_method > 0`` collects every round's projection of the whole
+        map and projects each level at ``gt_pose`` (JAX ``lm_s2gp.py:
+        798, 832-846``)."""
         if mode not in ("trajectory", "train"):
             raise NotImplementedError(f"mode={mode!r}")
         train = mode == "train"
-        if train and self.cfg.loss_method != 0:
-            raise NotImplementedError(
-                f"loss_method={self.cfg.loss_method} is not supported by "
-                "highlyaccurate_tpu_torch yet (training carries method 0)")
         if train and gt_pose is None:
             raise ValueError("mode='train' needs gt_pose")
+        collect = train and self.cfg.loss_method > 0
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             B = sat_map.shape[0]
-            sat_feats, _, grd_feats, _ = self.extract_features(sat_map,
-                                                               grd_img)
+            sat_feats, _, grd_feats, grd_confs = self.extract_features(
+                sat_map, grd_img)
             pose0 = (torch.zeros(B, 3, dtype=torch.float32,
                                  device=self.device)
                      if init_pose is None else init_pose.to(torch.float32))
-            return self._run_rounds(pose0, sat_feats, grd_feats, generator,
-                                    train, geo)
+            aux = {lvl: [] for lvl in range(len(self._slots))} \
+                if collect else None
+            traj = self._run_rounds(pose0, sat_feats, grd_feats, generator,
+                                    train, geo, grd_confs, aux)
+            if not collect:
+                return traj, None
+            gt = [self._project_gt(sat_feats[lvl], slot, gt_pose, geo)
+                  for lvl, slot in enumerate(self._slots)]
+            lists = dict(ref_feat_list=grd_feats,
+                         pred_feat_list=[torch.stack([a[0] for a in aux[l]],
+                                                     1) for l in aux],
+                         gt_feat_list=[g[0] for g in gt],
+                         pred_uv_list=[torch.stack([a[1] for a in aux[l]],
+                                                   1) for l in aux],
+                         gt_uv_list=[g[1] for g in gt])
+            return traj, lists
+
+    def _project_gt(self, sat_feat, slot: int, gt_pose, geo: tuple):
+        """The satellite features gathered at every ground pixel of the
+        slot at ``gt_pose`` [B, 3] (model pose order), zero where the ray
+        misses the ground, and the points' uv / A [B, H, W, 2] (zero
+        there too)."""
+        A = sat_feat.shape[1]
+        uv = self._uv_jac(gt_pose.to(torch.float32),
+                          getattr(self, f"rays_{slot}"), A, geo, jac=False)[0]
+        m = getattr(self, f"raymask_{slot}")[..., None]
+        return grid_sample(sat_feat, uv)[0] * m, uv * m / A
 
     def _outputs(self, mode, shift_lats, shift_lons, thetas, gt_lat, gt_lon,
-                 gt_theta):
+                 gt_theta, lists=None):
         """The outputs of ``mode`` from the [B, N_iters, L] trajectories
-        (and, in training, the gt components, each [B])."""
+        (and, in training, the gt components, each [B], and the feature
+        lists of loss methods 1-3)."""
         cfg = self.cfg
         if mode == "trajectory":
             return shift_lats, shift_lons, thetas
         coe_heading = 0.0 if cfg.rotation_range == 0 else cfg.coe_heading
         return loss_func(cfg.loss_method, shift_lats, shift_lons, thetas,
                          gt_lat, gt_lon, gt_theta, cfg.coe_shift_lat,
-                         cfg.coe_shift_lon, coe_heading)
+                         cfg.coe_shift_lon, coe_heading, **(lists or {}),
+                         coe_L1=cfg.coe_L1, coe_L2=cfg.coe_L2,
+                         coe_L3=cfg.coe_L3, coe_L4=cfg.coe_L4)
 
 
 class LMS2GP(S2GPBase):
@@ -514,9 +660,22 @@ class LMS2GP(S2GPBase):
             cfg, LMConfig(active_dims=cfg.active_pose_dims,
                           train_damping=bool(cfg.train_damping),
                           damping=cfg.damping,
-                          use_hessian=bool(cfg.use_hessian)),
+                          use_hessian=bool(cfg.use_hessian),
+                          using_weight=bool(cfg.using_weight),
+                          dropout=cfg.dropout),
             (1, 3) if cfg.rotation_range > 0 else (), precompute_rays(cfg),
             device)
+
+    def _other_update(self, pose, sat, grd, conf, jac, generator, t: int,
+                      adam):
+        """KITTI's SGD and ADAM steps (JAX ``lm_s2gp.py:457-466``)."""
+        cfg = self.cfg
+        if cfg.Optimizer == "SGD":
+            return sgd_update(pose, sat, grd, jac, self.lm_cfg)
+        pose, adam[0], adam[1] = adam_update(pose, sat, grd, jac, *adam, t,
+                                             self.lm_cfg, cfg.beta1,
+                                             cfg.beta2)
+        return pose
 
     def _uv_jac(self, pose, points, A: int, geo: tuple, jac: bool = True):
         cfg = self.cfg
@@ -539,8 +698,8 @@ class LMS2GP(S2GPBase):
         device; init_pose [B, 3] normalized warm start (default zero; with
         ``pose_hypotheses > 1`` hypothesis 0); generator: the
         ``torch.Generator`` (on the model's device) or ``PresetDraws`` of
-        the multi-start initial poses, drawn first, and of the
-        out-of-range re-init draw, which every round makes.
+        the multi-start initial poses, drawn first, then per round of the
+        dropout's keep-set and of the out-of-range re-init (LM only).
 
         mode 'test' -> (shift_lat, shift_lon, theta) each [B], and with
         ``with_info`` their pose covariance [B, 3, 3] (normalized units,
@@ -558,14 +717,14 @@ class LMS2GP(S2GPBase):
             # KITTI: u is longitudinal, v lateral
             out = (pose[:, 1], pose[:, 0], pose[:, 2])
             return out + (cov,) if with_info else out
-        traj = self._trajectory(sat_map, grd_img, mode, init_pose, gt_pose,
-                                generator)
+        traj, lists = self._trajectory(sat_map, grd_img, mode, init_pose,
+                                       gt_pose, generator)
         # KITTI: u is longitudinal, v lateral
         gt = (None,) * 3 if gt_pose is None else (
             gt_pose[:, 1].float(), gt_pose[:, 0].float(),
             gt_pose[:, 2].float())
         return self._outputs(mode, traj[..., 1], traj[..., 0], traj[..., 2],
-                             *gt)
+                             *gt, lists)
 
     def project_at_pose(self, sat_map, grd_img, pred_pose, gt_pose):
         """Per-level feature maps for ``--visualize`` PCA dumps (port of JAX

@@ -1,10 +1,17 @@
-"""LM pose updates (port of ``highlyaccurate_tpu/solver/updates.py:29-43,
-45-154, 156-248, 251-516, 519-532``): the S2GP and Ford update from K1's
+"""Pose updates (port of ``highlyaccurate_tpu/solver/updates.py:29-43,
+45-154, 156-248, 251-516, 519-620``): the S2GP and Ford LM update from K1's
 fused moments (evaluation) and from K2's line samples (training), the
 G2SP per-pixel update from K4's samples (both) or K6's fused moments
 (evaluation), and the gather sampler's updates: ``lm_update`` on a
-materialized Jacobian (``use_implicit_lm=0``, every family) and the S2GP /
-Ford per-pixel ``lm_update_implicit_pixel_norm``.
+materialized Jacobian (``use_implicit_lm=0``, ``using_weight``, every
+family) and the S2GP / Ford per-pixel ``lm_update_implicit_pixel_norm``;
+and the other update rules on a materialized Jacobian: ``sgd_update`` and
+``adam_update`` (KITTI), ``gn_update`` and ``sgd_update_l1`` (Ford).
+
+Pixel dropout (``dropout > 0``, the reference's random half of the
+pixels, models_kitti.py:968-974) keeps ``dropout_keep``'s pixels: one
+random half of the H x W grid per round for the whole batch, as JAX
+permutes H * W with the round's key.
 
 pose is [B, 3] = (shift_u, shift_v, heading), normalized.  The 3x3 damped
 solve runs in float32 whatever the feature dtype.  The contractions are
@@ -40,7 +47,10 @@ class LMConfig(NamedTuple):
     """Static solver knobs (subset of Config).  G2SP sets ``reinit=False``
     (no out-of-range re-init), ``raw_damping=True`` (a trained damping
     is used as it is, reference models_kitti.py:356-359) and
-    ``normalize=False`` (``lm_update`` without the feature norms)."""
+    ``normalize=False`` (``lm_update`` without the feature norms).
+    ``using_weight``: ``lm_update`` and ``gn_update`` weight each residual
+    by the target confidence; ``dropout > 0``: the LM updates keep a random
+    half of the pixels (``dropout_keep``)."""
     active_dims: tuple = (0, 1, 2)
     train_damping: bool = False
     damping: float = 0.1
@@ -48,6 +58,8 @@ class LMConfig(NamedTuple):
     reinit: bool = True
     raw_damping: bool = False
     normalize: bool = True
+    using_weight: bool = False
+    dropout: int = 0
 
 
 class PresetDraws:
@@ -82,6 +94,23 @@ def uniform_draws(generator: Draws, shape, device) -> torch.Tensor:
         return generator.take(shape)
     return torch.rand(shape, generator=generator, dtype=torch.float32,
                       device=device) * 2.0 - 1.0
+
+
+def dropout_keep(generator: Draws, H: int, W: int, device) -> torch.Tensor:
+    """The pixels one dropout round keeps, as flat indices into H x W: of
+    H * W numbers drawn from ``generator`` (``uniform_draws``), the indices
+    of the (H * W) // 2 smallest, in order.  A uniform random half, as JAX's
+    ``permutation(key, H * W)[:H * W // 2]`` gives; numbers whose argsort is
+    a given permutation keep exactly its first half."""
+    hw = H * W
+    return torch.argsort(uniform_draws(generator, (hw,), device))[: hw // 2]
+
+
+def dropout_mask(generator: Draws, H: int, W: int, device) -> torch.Tensor:
+    """``dropout_keep``'s pixels as a float32 [H, W] mask (1 kept)."""
+    mask = torch.zeros(H * W, dtype=torch.float32, device=device)
+    mask[dropout_keep(generator, H, W, device)] = 1.0
+    return mask.reshape(H, W)
 
 
 def compute_damping(damping_param, cfg: LMConfig, n_active: int,
@@ -131,14 +160,19 @@ def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
     new = pose.to(torch.float32).clone()
     new[:, act] += delta
     if cfg.reinit and n == 3:
-        rand = uniform_draws(generator, (2, B), pose.device)
-        lim = REINIT_RANGE
-        su, sv = new[:, 0], new[:, 1]
-        new = torch.stack([
-            torch.where((su > -lim) & (su < lim), su, rand[0]),
-            torch.where((sv > -lim) & (sv < lim), sv, rand[1]),
-            new[:, 2]], dim=-1)
+        new = _reinit(new, uniform_draws(generator, (2, B), pose.device))
     return new
+
+
+def _reinit(pose, rand):
+    """The shifts of ``pose`` [B, 3] that left (-REINIT_RANGE,
+    REINIT_RANGE) replaced by ``rand`` [2, B] (u, v)."""
+    lim = REINIT_RANGE
+    su, sv = pose[:, 0], pose[:, 1]
+    return torch.stack([
+        torch.where((su > -lim) & (su < lim), su, rand[0]),
+        torch.where((sv > -lim) & (sv < lim), sv, rand[1]),
+        pose[:, 2]], dim=-1)
 
 
 def _safe_norm(x, floor: float):
@@ -147,40 +181,151 @@ def _safe_norm(x, floor: float):
     return torch.sqrt(torch.clamp_min((x * x).sum(-1), floor * floor))
 
 
+def _flatten(sat_feat, grd_feat, jac, cfg: LMConfig, grd_conf, keep):
+    """The residual system of ``lm_update`` and ``gn_update`` (JAX
+    ``_flatten_residual_system``): J [B, D, n] on the active DoFs, sat and
+    grd [B, D] and the weight [B, D] (``grd_conf`` [B, H, W, 1] repeated
+    over the channels, or None), in float32, over every (pixel, channel),
+    or over the pixels ``keep`` (flat indices into H x W) holds."""
+    f32 = torch.float32
+    B, H, W, C = sat_feat.shape
+    act = list(cfg.active_dims)
+    J = jac[..., act].reshape(B, H * W, C, len(act))
+    sat = sat_feat.reshape(B, H * W, C)
+    grd = grd_feat.reshape(B, H * W, C)
+    conf = None if grd_conf is None else grd_conf.reshape(B, H * W)
+    if keep is not None:
+        J, sat, grd = J[:, keep], sat[:, keep], grd[:, keep]
+        conf = None if conf is None else conf[:, keep]
+    weight = (None if conf is None
+              else conf.to(f32).repeat_interleave(C, dim=-1))
+    return (J.reshape(B, -1, len(act)).to(f32), sat.reshape(B, -1).to(f32),
+            grd.reshape(B, -1).to(f32), weight)
+
+
+def _normal_equations(J, r, w):
+    """H = J^T W J [B, n, n] and g = J^T W r [B, n] (W = diag(w), or the
+    identity where w is None), written as sums of products, one per pair
+    of DoF, so no matrix product (and no TF32 mode) is involved."""
+    cols = J.unbind(-1)
+    wcols = cols if w is None else [a * w for a in cols]
+    hess = torch.stack([torch.stack([(a * b).sum(1) for b in cols], -1)
+                        for a in wcols], -2)
+    g = torch.stack([(a * r).sum(1) for a in wcols], -1)
+    return hess, g
+
+
 def lm_update(pose, sat_feat, grd_feat, jac, damping_param, cfg: LMConfig,
-              generator: Draws):
-    """One damped Gauss-Newton (LM) update on a materialized Jacobian, the
-    ``use_implicit_lm=0`` update of every family (port of JAX
-    ``lm_update``, reference models_kitti.py:939-1041 for S2GP and Ford,
-    ``normalize=True``, and :333-379 for G2SP, ``normalize=False``).
+              generator: Draws, grd_conf=None):
+    """One damped Gauss-Newton (LM) update on a materialized Jacobian (port
+    of JAX ``lm_update``, reference models_kitti.py:939-1041 for S2GP and
+    Ford, ``normalize=True``, and :333-379 for G2SP, ``normalize=False``).
 
     sat_feat [B, H, W, C] the projected "moving" features, grd_feat
-    [B, H, W, C] the target, jac [B, H, W, C, 3] d(sat_feat)/d(pose).  The
-    residual is r = sat - grd over every (pixel, channel), unweighted (the
-    port refuses ``using_weight``).  With ``normalize``, both sides are
-    divided by their whole-map norms floored at 1e-6 (``_safe_norm``: an
-    all-masked projection gives a zero vector, whose norm's backward would
-    be 0/0).  H = J^T J and g = J^T r are written as sums of products, one
-    per pair of DoF, so no matrix product (and no TF32 mode) is involved.
+    [B, H, W, C] the target, jac [B, H, W, C, 3] d(sat_feat)/d(pose);
+    grd_conf [B, H, W, 1] the target confidence, the residuals' weight with
+    ``cfg.using_weight`` (else unused).  The residual is r = sat - grd over
+    every (pixel, channel), or with ``cfg.dropout > 0`` and a
+    ``generator`` over the pixels ``dropout_keep`` draws (first, before the
+    re-init's numbers).  With ``normalize``, both sides are divided by
+    their whole-map norms floored at 1e-6 (``_safe_norm``: an all-masked
+    projection gives a zero vector, whose norm's backward would be 0/0).
     """
-    f32 = torch.float32
-    B = pose.shape[0]
-    act = list(cfg.active_dims)
-    n = len(act)
-    J = jac[..., act].reshape(B, -1, n).to(f32)           # [B, D, n]
-    sat = sat_feat.reshape(B, -1).to(f32)
-    grd = grd_feat.reshape(B, -1).to(f32)
+    H, W = sat_feat.shape[1:3]
+    keep = (dropout_keep(generator, H, W, pose.device)
+            if cfg.dropout > 0 and generator is not None else None)
+    J, sat, grd, weight = _flatten(sat_feat, grd_feat, jac, cfg, grd_conf,
+                                   keep)
     if cfg.normalize:
         sat_norm = _safe_norm(sat, 1e-6)
         sat = sat / sat_norm[:, None]
         J = J / sat_norm[:, None, None]
         grd = grd / _safe_norm(grd, 1e-6)[:, None]
-    r = sat - grd
-    cols = J.unbind(-1)
-    hess = torch.stack([torch.stack([(a * b).sum(1) for b in cols], -1)
-                        for a in cols], -2)               # [B, n, n]
-    g = torch.stack([(a * r).sum(1) for a in cols], -1)   # [B, n]
+    hess, g = _normal_equations(J, sat - grd,
+                                weight if cfg.using_weight else None)
     return _solve_and_reinit(pose, hess, g, damping_param, cfg, generator)
+
+
+def _feature_grad(r, jac, act):
+    """sum over (h, w, c) of r * jac [B, n] on the active DoFs (JAX's
+    ``einsum("bhwc,bhwcn->bn")``), as products and sums."""
+    return (r.to(torch.float32)[..., None]
+            * jac[..., act].to(torch.float32)).sum((1, 2, 3))
+
+
+def _add_active(pose, act, delta):
+    new = pose.clone()
+    new[:, act] = new[:, act] + delta
+    return new
+
+
+def sgd_update(pose, sat_feat, grd_feat, jac, cfg: LMConfig,
+               lr: float = 0.01):
+    """Plain gradient step on the unnormalized L2 residual (port of JAX
+    ``sgd_update``, reference models_kitti.py:1056-1084): grad = sum over
+    (h, w, c) of 2 r d(sat)/d(pose), r = sat - grd; pose -= lr * grad on
+    the active DoFs.  No draws."""
+    act = list(cfg.active_dims)
+    grad = _feature_grad(2 * (sat_feat.float() - grd_feat.float()), jac,
+                         act)
+    return _add_active(pose, act, -lr * grad)
+
+
+def adam_update(pose, sat_feat, grd_feat, jac, m, v, t: int, cfg: LMConfig,
+                beta1: float = 0.9, beta2: float = 0.999, lr: float = 0.01):
+    """Adam-style step on ``sgd_update``'s gradient (port of JAX
+    ``adam_update``, reference models_kitti.py:1086-1124): m, v [B, n] the
+    moment accumulators of the forward, t the round index (0 first), which
+    sets the bias corrections.  Returns (pose, m, v)."""
+    act = list(cfg.active_dims)
+    grad = _feature_grad(2 * (sat_feat.float() - grd_feat.float()), jac,
+                         act)
+    m = beta1 * m + (1 - beta1) * grad
+    v = beta2 * v + (1 - beta2) * grad * grad
+    m_hat = m / (1 - beta1 ** (t + 1))
+    v_hat = v / (1 - beta2 ** (t + 1))
+    delta = m_hat / (torch.sqrt(v_hat) + 1e-8)
+    return _add_active(pose, act, -lr * delta), m, v
+
+
+def gn_update(pose, sat_feat, grd_feat, grd_conf, jac, cfg: LMConfig,
+              generator: Draws):
+    """Undamped Gauss-Newton step, the Ford ``Optimizer=GN`` (port of JAX
+    ``gn_update``, reference models_ford.py:534-598): the satellite side
+    and J divided by the satellite features' whole-map norm (the target is
+    not normalized), weighted by ``grd_conf`` with ``cfg.using_weight``,
+    H delta = -J^T W r solved with a 1e-8 Tikhonov floor (finite where H is
+    singular; the reference would raise), then, with a ``generator`` and
+    all three DoF active, the out-of-range re-init of the shifts
+    (whatever ``cfg.reinit`` says).  No dropout."""
+    B = pose.shape[0]
+    act = list(cfg.active_dims)
+    n = len(act)
+    J, sat, grd, weight = _flatten(sat_feat, grd_feat, jac, cfg, grd_conf,
+                                   None)
+    sat_norm = _safe_norm(sat, 1e-6)
+    sat = sat / sat_norm[:, None]
+    J = J / sat_norm[:, None, None]
+    hess, g = _normal_equations(J, sat - grd,
+                                weight if cfg.using_weight else None)
+    eye = torch.eye(n, dtype=torch.float32, device=pose.device)
+    sol, _ = torch.linalg.solve_ex(hess + 1e-8 * eye, g[..., None])
+    new = _add_active(pose.to(torch.float32), act, -sol[..., 0])
+    if generator is not None and n == 3:
+        new = _reinit(new, uniform_draws(generator, (2, B), pose.device))
+    return new
+
+
+def sgd_update_l1(pose, sat_feat, grd_feat, jac, cfg: LMConfig,
+                  lr: float = 0.001):
+    """L1-subgradient step, the Ford ``Optimizer=SGD`` (port of JAX
+    ``sgd_update_l1``, reference models_ford.py:609-634): grad = sum of
+    sign(r) / (C * H * W) * d(sat)/d(pose).  No draws."""
+    act = list(cfg.active_dims)
+    H, W, C = sat_feat.shape[1:]
+    r = sat_feat.float() - grd_feat.float()
+    grad = _feature_grad(torch.sign(r) / (C * H * W), jac, act)
+    return _add_active(pose, act, -lr * grad)
 
 
 def _pair(Pa, Da, Pb, Db, m0, m1, m2):
@@ -256,9 +401,13 @@ def lm_update_implicit(pose, out, dx, dy, grd, mask, P0, dP, damping_param,
     (dx, dy) order of the samples.  The nine per-pixel channel moments
     under the ray mask, summed over u with weights 1, u, u^2, are exactly
     what K1 fuses, so the rest is ``lm_update_from_moments``.  The
-    contraction is plain torch, as the JAX package left it to XLA.
+    contraction is plain torch, as the JAX package left it to XLA.  With
+    ``cfg.dropout > 0`` the mask also drops the pixels ``dropout_keep``
+    leaves out (the same pixels ``lm_update`` would keep from the same
+    numbers).
     """
     f32 = torch.float32
+    mask = _dropped(mask, generator, cfg)
     M = moment_sums(out.to(f32), dx.to(f32), dy.to(f32), grd, mask)
     return lm_update_from_moments(pose, M, P0, dP, damping_param, cfg,
                                   generator)
@@ -275,10 +424,20 @@ def _pixel_hessian(Du, Dv, sxx, sxy, syy):
             + outer(Dv, Dv, syy))
 
 
+def _dropped(mask, generator, cfg: LMConfig):
+    """``mask`` [..., H, W] times ``dropout_mask`` with ``cfg.dropout > 0``
+    (JAX ``_implicit_moments``: dropped pixels leave the moments and the
+    norms), else ``mask`` itself."""
+    if cfg.dropout > 0 and generator is not None:
+        H, W = mask.shape[-2:]
+        return mask * dropout_mask(generator, H, W, mask.device)
+    return mask
+
+
 def _implicit_moments(out, dx, dy, grd, mask):
     """The moment preamble of the per-pixel implicit update and of
-    ``lm_information`` (JAX ``_implicit_moments`` without the dropout the
-    port refuses): the nine per-pixel channel moments [B, H, W, 9] in
+    ``lm_information`` (JAX ``_implicit_moments``; the caller folds the
+    dropout into ``mask``): the nine per-pixel channel moments [B, H, W, 9] in
     ``MOM_IDX`` order under the mask [1|B, H, W], and the whole-map feature
     norms ns, ng [B] floored at 1e-6."""
     f32 = torch.float32
@@ -304,10 +463,11 @@ def lm_update_implicit_pixel_norm(pose, out, dx, dy, grd, mask, duv,
     out, dx, dy [B, H, W, C] sampled values and screen derivatives (masked
     in bounds by the sampler); grd [B, H, W, C] the target, unmasked;
     mask [1|B, H, W] the ray mask; duv [B, H, W, 2, 3].  Differentiable with
-    respect to every tensor argument.
+    respect to every tensor argument.  Dropout as in ``lm_update_implicit``.
     """
     f32 = torch.float32
-    mom, ns, ng = _implicit_moments(out, dx, dy, grd, mask)
+    mom, ns, ng = _implicit_moments(out, dx, dy, grd,
+                                    _dropped(mask, generator, cfg))
 
     def pix(name):
         return mom[..., MOM_IDX[name]]                    # [B, H, W]

@@ -33,7 +33,8 @@ import dataclasses
 import torch
 
 from highlyaccurate_tpu_torch.config import Config
-from highlyaccurate_tpu_torch.models.lm_s2gp import eval_draws_per_image
+from highlyaccurate_tpu_torch.models.lm_s2gp import (eval_draws_per_batch,
+                                                     eval_draws_per_image)
 from highlyaccurate_tpu_torch.solver.updates import (PresetDraws,
                                                      uniform_draws)
 from highlyaccurate_tpu_torch.train.state import TrainState
@@ -128,11 +129,11 @@ class EvalProgram(torch.nn.Module):
     extras: none for KITTI S2GP, camera_k [B, 3, 3] for G2SP, R_FL
     [B, 3, 3] and T_FL [B, 3] for Ford (with ``ford_side_m``); init_pose
     [B, 3] with ``warm_start``; cov [B, 3, 3] with ``with_info``.  draws
-    [B * draws_per_image] uniform in [-1, 1) are the forward's random
-    numbers (``PresetDraws``: the multi-start initial poses, then the
-    re-init of every round), an input because an exported program cannot
-    take a generator; a count that does not match what the forward takes
-    raises.  ``ford_layout`` fixes Ford's banded kernel layout (an
+    [``n_draws(B)``] uniform in [-1, 1) are the forward's random numbers
+    (``PresetDraws``: the multi-start initial poses, then the dropout and
+    the re-init of every round), an input because an exported program
+    cannot take a generator; a count that does not match what the forward
+    takes raises.  ``ford_layout`` fixes Ford's banded kernel layout (an
     exported program cannot read the rig on the host); None reads it from
     each batch's rig.
     """
@@ -148,6 +149,11 @@ class EvalProgram(torch.nn.Module):
         self.with_info = with_info
         self.ford_layout = ford_layout
         self.draws_per_image = eval_draws_per_image(cfg, model.lm_cfg)
+        self.draws_per_batch = eval_draws_per_batch(cfg)
+
+    def n_draws(self, B: int) -> int:
+        """The random numbers a forward of B images takes."""
+        return self.draws_per_image * B + self.draws_per_batch
 
     def forward(self, sat, grd, *rest):
         *extras, draws = rest
@@ -195,10 +201,11 @@ def make_eval_step(model: torch.nn.Module, cfg: Config, ford_side_m=None,
     @torch.no_grad()
     def step(sat, grd, *rest):
         *args, generator = rest
-        n = program.draws_per_image * sat.shape[0]
+        n = program.n_draws(sat.shape[0])
         if n and generator is None:
             raise ValueError("this evaluation draws random numbers "
-                             "(multi-start or re-init): pass a generator")
+                             "(multi-start, dropout or re-init): pass a "
+                             "generator")
         draws = (uniform_draws(generator, (n,), sat.device) if n
                  else sat.new_zeros(0))
         return program(sat, grd, *args, draws)

@@ -34,6 +34,7 @@ from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
 from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
 from highlyaccurate_tpu_torch.models.vggunet import VGGUnet
 from highlyaccurate_tpu_torch.params import _branch, state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 FEAT_REL_L2 = 1e-2
 POSE_REL_L2 = 2e-2

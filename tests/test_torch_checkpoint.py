@@ -23,6 +23,7 @@ from highlyaccurate_tpu_torch.params import state_dict_from_jax
 from highlyaccurate_tpu_torch.train import checkpoint as ckpt
 from highlyaccurate_tpu_torch.train.state import (create_train_state,
                                                   reset_for_epoch)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(grd_h=32, grd_w=128, sat_size=64, N_iters=1, level=3)
 

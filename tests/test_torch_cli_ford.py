@@ -58,6 +58,7 @@ from highlyaccurate_tpu_torch.cli import train_ford as cli
 from highlyaccurate_tpu_torch.config import config_from_args
 from highlyaccurate_tpu_torch.eval import metrics
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GEOM = ["--grd_h", "64", "--grd_w", "256", "--sat_size", "128"]
 EVAL = ["--test", "1", "--synthetic", "2", "--batch_size", "2",
@@ -284,8 +285,7 @@ def test_write_ford_matches_jax(tmp_path):
 
 REFUSED = {"estimate_depth": ["--estimate_depth", "1"],
            "use_gt_depth": ["--use_gt_depth", "1"],
-           "proj": ["--proj", "polar"],
-           "Optimizer": ["--Optimizer", "SGD"]}
+           "proj": ["--proj", "polar"]}
 
 
 @pytest.mark.parametrize("name", list(REFUSED))

@@ -51,6 +51,7 @@ from highlyaccurate_tpu.train.checkpoint import save_params as jsave_params
 from highlyaccurate_tpu_torch.cli import train_kitti as cli
 from highlyaccurate_tpu_torch.config import config_from_args
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 S2GP = ["--grd_h", "32", "--grd_w", "128", "--sat_size", "64"]
 G2SP = ["--direction", "G2SP", "--grd_h", "64", "--grd_w", "256",

@@ -1,7 +1,8 @@
 """``Localizer.export`` and ``ExportedLocalizer`` on the CPU: an artifact
 serves the same outputs as the live ``Localizer`` it came from (KITTI
-S2GP with batch sizes [1, 2], G2SP, Ford, and S2GP with ``warm_start`` and
-``return_cov``), and it refuses what it cannot serve: another format (a
+S2GP with batch sizes [1, 2], G2SP, Ford, S2GP with ``warm_start`` and
+``return_cov``, with ``dropout`` and with ``Optimizer="NN"``), and it
+refuses what it cannot serve: another format (a
 JAX artifact included), another device type, ``init_pose`` without
 ``warm_start``, and a Ford rig of the other kernel layout.  On the card
 the ``serving_api`` phase of chip_smoke.py checks that an exported
@@ -16,6 +17,7 @@ import pytest
 from highlyaccurate_tpu_torch import Config
 from highlyaccurate_tpu_torch.inference import ExportedLocalizer, Localizer
 from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # one pyramid level, one round: a short program to trace (the contract
 # under test does not depend on the depth)
@@ -32,6 +34,10 @@ CASES = {
     "ford": (WIDE, dict(ford_extrinsics=(FORD_R, FORD_T),
                         ford_side_m=128 * 0.22), {}),
     "warm_cov": (S2GP, {}, dict(warm_start=True, return_cov=True)),
+    # the solver options' draws: a dropout keep-set per round for the
+    # batch (an input of the program), and NN's head, which draws nothing
+    "dropout": (dict(S2GP, dropout=1), {}, {}),
+    "nn": (dict(S2GP, Optimizer="NN"), {}, {}),
 }
 
 
@@ -87,7 +93,9 @@ def test_exported_serves_like_live(artifacts, name):
     meta = srv.meta
     assert meta["device"] == "cpu" and meta["ford"] == (name == "ford")
     assert meta["g2sp"] == (name == "g2sp")
-    assert meta["draws_per_image"] == (0 if name == "g2sp" else 2)
+    assert meta["draws_per_image"] == (0 if name in ("g2sp", "nn") else 2)
+    # dropout: one number per kept pixel of the 4 x 16 level's 2 kept rows
+    assert meta["draws_per_batch"] == (32 if name == "dropout" else 0)
 
 
 def test_exported_refusals(artifacts, tmp_path):

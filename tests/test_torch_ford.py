@@ -40,6 +40,7 @@ from highlyaccurate_tpu_torch import Config
 from highlyaccurate_tpu_torch.models.ford import (LMS2GPFord, kernel_layout,
                                                   sample_layouts)
 from highlyaccurate_tpu_torch.params import init_params, state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(grd_h=32, grd_w=128, sat_size=64, N_iters=2, level=3)
 B = 2
@@ -333,22 +334,33 @@ def test_jax_ford_params_load_and_init():
 
 
 REFUSED = {
-    "Optimizer=GN": dict(Optimizer="GN"), "Optimizer=SGD": dict(Optimizer="SGD"),
-    "Optimizer=NN": dict(Optimizer="NN"), "Optimizer=ADAM": dict(Optimizer="ADAM"),
+    "Optimizer=ADAM": dict(Optimizer="ADAM"),
     "estimate_depth": dict(estimate_depth=1),
-    "use_gt_depth": dict(use_gt_depth=1),
-    "using_weight": dict(using_weight=1), "dropout": dict(dropout=2),
-    "level_first": dict(level_first=1), "proj": dict(proj="polar"),
+    "use_gt_depth": dict(use_gt_depth=1), "proj": dict(proj="polar"),
 }
 
 
 @pytest.mark.parametrize("opt", list(REFUSED.values()), ids=list(REFUSED))
 def test_unsupported_ford_options_raise(opt):
+    """What the port does not carry for Ford yet raises
+    ``NotImplementedError`` naming it; ADAM, which Ford has no update rule
+    for, ``ValueError``, as the JAX model does (its forward raises)."""
     from highlyaccurate_tpu_torch.inference import Localizer
     name = next(iter(opt))
-    with pytest.raises(NotImplementedError, match=name):
+    adam = opt.get("Optimizer") == "ADAM"
+    with pytest.raises(ValueError if adam else NotImplementedError,
+                       match="ADAM" if adam else name):
         Localizer(Config(**TINY, **opt), random_init=True, device="cpu",
                   ford_extrinsics=(R_FL, T_FL), ford_side_m=SIDE_M)
+    if adam:
+        sat, grd = _images(0)
+        R, T = _rig()
+        with pytest.raises(ValueError, match="ADAM"):
+            JLMS2GPFord(cfg=JConfig(**TINY, **opt)).init(
+                {"params": jax.random.PRNGKey(0),
+                 "lm": jax.random.PRNGKey(1)}, jnp.asarray(sat),
+                jnp.asarray(grd), SIDE_M, jnp.asarray(R), jnp.asarray(T),
+                mode="trajectory")
 
 
 # Options the port carries since the gather path came (they were refused
@@ -439,10 +451,17 @@ def test_ford_entry_errors():
     kitti = Localizer(Config(**TINY), random_init=True, device="cpu")
     with pytest.raises(ValueError, match="Ford-chain"):
         kitti.predict(sat, grd, R_FL=R, T_FL=T)
-    with pytest.raises(NotImplementedError, match="loss_method"):
-        Localizer(Config(**TINY, loss_method=1), random_init=True,
+    # loss method 1 trains through the gather sampler with its triplet
+    # term (tests/test_torch_solver_train.py holds KITTI's to JAX); a
+    # weighted solve has no covariance, as in JAX
+    out = Localizer(Config(**TINY, loss_method=1), random_init=True,
+                    device="cpu", ford_extrinsics=rig,
+                    ford_side_m=SIDE_M).model(
+        *(torch.from_numpy(a) for a in (sat, grd)), SIDE_M,
+        *(torch.from_numpy(a) for a in (R, T)), mode="train",
+        gt_pose=torch.full((2, 3), 0.5), generator=torch.Generator())
+    assert out.L1 is not None and torch.isfinite(out.loss)
+    with pytest.raises(ValueError, match="using_weight"):
+        Localizer(Config(**TINY, using_weight=1), random_init=True,
                   device="cpu", ford_extrinsics=rig,
-                  ford_side_m=SIDE_M).model(
-            *(torch.from_numpy(a) for a in (sat, grd)), SIDE_M,
-            *(torch.from_numpy(a) for a in (R, T)), mode="train",
-            gt_pose=torch.zeros(2, 3), generator=torch.Generator())
+                  ford_side_m=SIDE_M).predict(sat, grd, return_cov=True)

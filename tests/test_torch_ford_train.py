@@ -48,6 +48,7 @@ from highlyaccurate_tpu_torch.models.ford import LMS2GPFord, kernel_layout
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
 from highlyaccurate_tpu_torch.train.state import create_train_state
 from highlyaccurate_tpu_torch.train.step import METRICS, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(grd_h=32, grd_w=128, sat_size=64, N_iters=2, level=3,
             train_damping=1)

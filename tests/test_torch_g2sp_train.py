@@ -44,6 +44,7 @@ from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
 from highlyaccurate_tpu_torch.train.state import create_train_state
 from highlyaccurate_tpu_torch.train.step import METRICS, make_train_step
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 S, GH, GW = 128, 64, 256
 TINY = dict(direction="G2SP", grd_h=GH, grd_w=GW, sat_size=S, N_iters=2,

@@ -42,6 +42,7 @@ from highlyaccurate_tpu_torch.models.ford import LMS2GPFord
 from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP, projline_slots
 from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP, _scaled_default_k
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 B = 2
 FAMILIES = {

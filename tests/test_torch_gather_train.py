@@ -18,6 +18,7 @@ import torch
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
 from test_torch_gather_path import (FAMILIES, _case, _fwd_kw, _jax, _port,
                                     _torch_args)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GRAD_REL_L2 = 2e-2
 

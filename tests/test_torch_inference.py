@@ -19,6 +19,7 @@ from highlyaccurate_tpu.config import Config as JConfig
 from highlyaccurate_tpu.models.vggunet import VGGUnet as JVGGUnet
 from highlyaccurate_tpu_torch import Config
 from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(grd_h=32, grd_w=128, sat_size=64, N_iters=2, level=3)
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -95,10 +96,7 @@ def test_port_imports_no_jax():
                                "highlyaccurate_tpu"), f"{f}: imports {mod}"
 
 
-UNSUPPORTED = [
-    dict(proj="polar"), dict(Optimizer="SGD"), dict(using_weight=1),
-    dict(use_gt_depth=1), dict(dropout=2), dict(level_first=1),
-]
+UNSUPPORTED = [dict(proj="polar"), dict(use_gt_depth=1)]
 
 
 @pytest.mark.parametrize("opt", UNSUPPORTED,
@@ -121,7 +119,13 @@ def test_unsupported_options_raise(opt):
 #   (the gather sampler on both sides);
 # * Ford at bf16 features (JAX ``use_banded_warp=2``);
 # * S2GP with ``pose_hypotheses=4`` (fp32 map, JAX ``use_banded_warp=2``),
-#   both frameworks fed the same starts (``_feed_starts``).
+#   both frameworks fed the same starts (``_feed_starts``);
+# * the solver options (fp32 map, JAX ``use_banded_warp=2``):
+#   ``Optimizer="SGD"`` (K2's samples and the materialized Jacobian),
+#   ``using_weight`` (the gather sampler, the confidence weight),
+#   ``dropout`` (K2 and ``lm_update_implicit``; both frameworks keep the
+#   same pixels, ``_feed_keep``) and ``level_first``, at N_iters=2 so the
+#   order matters (measured 1.4e-6, 1.4e-6, 1.2e-4 and 6.6e-5 m, deg).
 # atol 1e-3 m / deg as above (measured 5.3e-5, 3.8e-6 and 5.1e-5), except
 # where a
 # bf16 map or bf16 features enter: G2SP's projective-line levels sample a
@@ -140,6 +144,13 @@ LIFTED = {
                       dict(use_banded_warp=2)),
     "pose_hypotheses": (dict(pose_hypotheses=4, banded_bf16_map=0),
                         dict(use_banded_warp=2)),
+    "Optimizer": (dict(Optimizer="SGD", banded_bf16_map=0),
+                  dict(use_banded_warp=2)),
+    "using_weight": (dict(using_weight=1, banded_bf16_map=0),
+                     dict(use_banded_warp=2)),
+    "dropout": (dict(dropout=1, banded_bf16_map=0), dict(use_banded_warp=2)),
+    "level_first": (dict(level_first=1, N_iters=2, banded_bf16_map=0),
+                    dict(use_banded_warp=2)),
 }
 # the multi-start initial poses of one batch of 2 [2, 4, 3]; hypothesis 0
 # is the zero start in both frameworks
@@ -168,6 +179,28 @@ def _feed_starts(monkeypatch):
     monkeypatch.setattr(lm_s2gp, "draw_starts", port_draw)
 
 
+def _feed_keep(monkeypatch):
+    """JAX's dropout permutation and the port's ``dropout_keep`` keep the
+    same fixed pixels (the first half of one numpy permutation of each
+    length; the port's still consumes its generator's numbers)."""
+    from highlyaccurate_tpu_torch.solver import updates
+    keep = updates.dropout_keep
+    perms = {}
+
+    def perm(n):
+        if n not in perms:
+            perms[n] = np.random.RandomState(n).permutation(n)
+        return perms[n]
+
+    def port_keep(generator, H, W, device):
+        keep(generator, H, W, device)
+        return torch.from_numpy(perm(H * W)[:H * W // 2]).to(device)
+
+    monkeypatch.setattr(jax.random, "permutation",
+                        lambda key, n, *a, **k: jnp.asarray(perm(n)))
+    monkeypatch.setattr(updates, "dropout_keep", port_keep)
+
+
 @pytest.mark.parametrize("name", list(LIFTED))
 def test_lifted_options_serve_like_jax(name, monkeypatch):
     from highlyaccurate_tpu.inference import Localizer as JLocalizer
@@ -175,7 +208,7 @@ def test_lifted_options_serve_like_jax(name, monkeypatch):
     from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
 
     kw, jax_kw = LIFTED[name]
-    kw = dict(TINY, N_iters=1, **kw)
+    kw = dict(dict(TINY, N_iters=1), **kw)
     params = _jax_params(10)
     if name == "direction":
         params["damping"] = np.full((1, 3), 0.1, np.float32)
@@ -190,6 +223,8 @@ def test_lifted_options_serve_like_jax(name, monkeypatch):
                      ford_side_m=64 * 0.22)
     if name == "pose_hypotheses":
         _feed_starts(monkeypatch)
+    if name == "dropout":
+        _feed_keep(monkeypatch)
     sat, grd = _images(11, n=3)
     want = JLocalizer(JConfig(**kw, **jax_kw), params=params, batch_size=2,
                       **extra).predict(sat, grd)
@@ -221,13 +256,24 @@ def test_unsupported_entry_options_raise():
     with pytest.warns(UserWarning, match="UNCALIBRATED"):
         out = loc.predict(sat, grd, return_cov=True)
     assert out["cov"].shape == (1, 3, 3) and np.isfinite(out["cov"]).all()
-    # loss_method 1-3 still serve, as in JAX; training refuses them
+    # loss_method 1-3 serve as method 0 does and train with their terms
+    # (tests/test_torch_solver_train.py holds them to JAX)
     loc = Localizer(Config(**TINY, loss_method=1), random_init=True,
                     device="cpu")
     loc.predict(sat, grd)
-    with pytest.raises(NotImplementedError, match="loss_method"):
-        loc.model(torch.from_numpy(sat), torch.from_numpy(grd), mode="train",
-                  gt_pose=torch.zeros(1, 3), generator=torch.Generator())
+    out = loc.model(torch.from_numpy(sat), torch.from_numpy(grd),
+                    mode="train", gt_pose=torch.full((1, 3), 0.5),
+                    generator=torch.Generator())
+    assert out.L1 is not None and torch.isfinite(out.loss)
+    # the covariance of a weighted solve is refused, as in JAX; an
+    # Optimizer KITTI S2GP has no rule for raises ValueError
+    loc = Localizer(Config(**TINY, using_weight=1), random_init=True,
+                    device="cpu")
+    with pytest.raises(ValueError, match="using_weight"):
+        loc.predict(sat, grd, return_cov=True)
+    with pytest.raises(ValueError, match="unknown Optimizer GN"):
+        Localizer(Config(**TINY, Optimizer="GN"), random_init=True,
+                  device="cpu")
 
 
 def test_device_none_raises_without_cuda():

@@ -26,6 +26,7 @@ from highlyaccurate_tpu.models.lm_s2gp import LMS2GP as JLMS2GP
 from highlyaccurate_tpu_torch import Config
 from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY = dict(grd_h=32, grd_w=128, sat_size=64, N_iters=2, level=3)
 B = 2

@@ -25,6 +25,7 @@ from highlyaccurate_tpu_torch.models import lm_s2gp
 from test_torch_serving_api import (COV_REL, FORD_R, FORD_T, GEOM,
                                     POSE_ATOL, _cfg_kw, _extra, _images,
                                     _jax_params, _rel_fro)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # The starts every test feeds both frameworks: hypothesis 0 is the zero
 # (or warm) start, the others well apart in [-0.6, 0.6].

@@ -40,6 +40,7 @@ from chip_smoke import (EDGE_AX, EDGE_AY, edge_projline_coefs,
                         edge_projlines)
 from highlyaccurate_tpu_torch.ops import projline as tpl
 from highlyaccurate_tpu_torch.solver import updates as tu
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _jax():

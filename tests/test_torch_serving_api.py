@@ -30,6 +30,7 @@ from highlyaccurate_tpu_torch import Config
 from highlyaccurate_tpu_torch.inference import Localizer, _batched_predict
 from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
 from highlyaccurate_tpu_torch.solver import updates as tupd
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 # fp32 map and features; N_iters=1 (3 rounds); G2SP at a 64-row ground
 # input, so every level's ground map takes the projective-line sampler

@@ -107,8 +107,11 @@ def test_loss_func_method0_matches():
             continue
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5,
                                    atol=1e-5, err_msg=name)
-    with pytest.raises(NotImplementedError, match="loss_method=2"):
-        tl.loss_func(2, *(torch.from_numpy(a) for a in traj + gt))
+    # methods 1-3 are held to JAX in tests/test_torch_solver_updates.py;
+    # another method raises as JAX's does
+    with pytest.raises(ValueError, match="unknown loss_method 4"):
+        tl.loss_func(4, *(torch.from_numpy(a) for a in traj + gt),
+                     ref_feat_list=[])
 
 
 def _adam_pair(keep):

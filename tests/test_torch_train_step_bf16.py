@@ -21,6 +21,7 @@ import numpy as np
 
 from _torch_train_parity import (LOSS_UNIT_METRICS, step_parity,
                                  update_agreement)
+from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def test_train_step_matches_bf16_map():
