@@ -8,8 +8,10 @@ gradient; the fused pixel-moment kernel with ``g2sp_pixel_moments=1``),
 Ford LM_S2GP_Ford serving and training on the banded kernels, and the KITTI
 training and evaluation CLI (``cli/train_kitti.py``, with its data
 pipeline, metrics, checkpoints and bf16 evaluation features), the Ford
-CLI, the gather sampler path, and the serving API's covariance,
-multi-start and export (``inference.py``), on an NVIDIA Hopper GPU.  Each
+CLI, the gather sampler path, the serving API's covariance, multi-start
+and export (``inference.py``), the solver options and the projection and
+depth options (``proj`` polar and nn, ``use_gt_depth``, Ford's
+``estimate_depth``), on an NVIDIA Hopper GPU.  Each
 module names its counterpart in ``highlyaccurate_tpu``; the JAX package
 stays the numerical reference and is never imported from here.
 

@@ -23,9 +23,10 @@ JAX CLI resolves it; ``--test 1`` on the port's own ``Model_best`` uses bf16
 features.  ``--pose_hypotheses P`` evaluates with P starts per image.
 The solver options run as the model takes them: ``--Optimizer`` LM, GN,
 SGD or NN (ADAM raises ``ValueError``, as in JAX), ``--using_weight``,
-``--dropout``, ``--level_first`` and ``--loss_method`` 0-3.
-``--estimate_depth``, ``--use_gt_depth`` and ``--proj`` other than geo
-raise ``NotImplementedError`` naming the option.
+``--dropout``, ``--level_first`` and ``--loss_method`` 0-3.  So do
+``--proj`` polar or nn (no sky crop, the gather sampler), ``--estimate_depth
+1`` (the depth heads and the lifted rays; save path suffix ``_Depth1``)
+and ``--use_gt_depth 1`` (which the Ford model never reads, as in JAX).
 """
 
 from __future__ import annotations
@@ -133,8 +134,8 @@ def parse_args(argv=None):
 
 
 def build_model(cfg: Config, device):
-    """The Ford model on ``device``; its ``check_supported`` refuses what
-    the port does not carry, naming the option."""
+    """The Ford model on ``device`` (its ``check_supported`` refuses ADAM
+    with ``ValueError``, as JAX does)."""
     from highlyaccurate_tpu_torch.models.ford import LMS2GPFord
     return LMS2GPFord(cfg, device=device)
 
@@ -410,7 +411,8 @@ def main(argv=None):
         from highlyaccurate_tpu_torch.params import load_pth
         from highlyaccurate_tpu_torch.train.checkpoint import load_params
         if args.import_pth:
-            model.load_state_dict(load_pth(args.import_pth))
+            model.load_state_dict(load_pth(
+                args.import_pth, depth=model.GrdFeatureNet.estimate_depth))
         else:
             load_params(save_path, "Model_best", model)
         evaluate(model, cfg, args, save_path, 0, 1e9)

@@ -21,8 +21,11 @@ evaluates with P starts per image (the model's multi-start sweep).  The
 solver options run as the models take them: ``--Optimizer`` (LM, SGD,
 ADAM with ``--beta1`` / ``--beta2``, NN), ``--using_weight``,
 ``--dropout``, ``--level_first`` and ``--loss_method`` 0-3 (G2SP: 0).
-``--proj`` other than geo and ``--use_gt_depth`` raise
-``NotImplementedError`` naming the option.
+So do the projection options: ``--proj polar`` or ``nn`` (S2GP: the polar
+rays; G2SP nn: the re-laid-out ground branch and the in-plane warp; both
+on the gather sampler) and ``--use_gt_depth 1`` (the gather sampler on
+the flat rays: the data carries no depth, as in JAX), with the JAX save
+path suffixes ``_polar``, ``_nn`` and ``_depth``.
 
 Quirks kept on purpose: Adam is re-created every epoch with a poly-decayed
 lr; ``--test 1`` loads ``model_1`` as the reference loads ``model_1.pth``.
@@ -131,9 +134,7 @@ def parse_args(argv=None):
 
 
 def build_model(cfg: Config, device):
-    """The model of ``cfg.direction`` on ``device``.  The model's
-    ``check_supported`` refuses what the port does not carry, naming the
-    option."""
+    """The model of ``cfg.direction`` on ``device``."""
     from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
     from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
     return {"S2GP": LMS2GP, "G2SP": LMG2SP}[cfg.direction](cfg,
@@ -401,7 +402,8 @@ def main(argv=None):
         from highlyaccurate_tpu_torch.params import load_pth
         from highlyaccurate_tpu_torch.train.checkpoint import load_params
         if args.import_pth:
-            model.load_state_dict(load_pth(args.import_pth))
+            model.load_state_dict(load_pth(
+                args.import_pth, depth=model.GrdFeatureNet.estimate_depth))
             if cfg.use_banded_warp:
                 print("note: evaluating an imported reference checkpoint "
                       "with the banded sampler; the faithful path for "

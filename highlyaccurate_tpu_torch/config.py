@@ -5,9 +5,10 @@ field for field from the JAX package so one ``Config`` describes both
 implementations.  Knobs that only shape the TPU kernels' schedule
 (``banded_u_chunk``, ``pad_input_channels``, ``remat``) are accepted and have
 no effect here: the JAX package documents them as numerically identical at
-every value.  Options the port does not carry yet are refused by the model
-(``models/lm_s2gp.py:check_supported``).  ``config_from_args`` resolves a
-CLI namespace as the JAX package's does.
+every value.  Every other field is read as the JAX package reads it; the
+models' ``check_supported`` refuses what a family has no rule for (an
+unknown ``Optimizer``, Ford's ADAM).  ``config_from_args`` resolves a CLI
+namespace as the JAX package's does.
 """
 
 from __future__ import annotations

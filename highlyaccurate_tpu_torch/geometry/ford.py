@@ -1,13 +1,13 @@
-"""Ford-AV geometry (port of ``highlyaccurate_tpu/geometry/ford.py:20-56,
-73-171``): the camera -> body -> world -> satellite chain of LM_S2GP_Ford.
+"""Ford-AV geometry (port of ``highlyaccurate_tpu/geometry/ford.py``):
+the camera -> body -> world -> satellite chain of LM_S2GP_Ford.
 
 Frames (Ford): body X north, Y east, Z down; the camera extrinsics
 (R_FL, T_FL) map camera to body, Xb = R_FL @ Xc + T_FL.  The normalized
 pose scales are swapped against KITTI, as in the reference: shift_u uses
 ``shift_range_lat``, shift_v ``shift_range_lon``.  Rays are host numpy,
 computed exactly as the JAX package does; the projection and its
-closed-form Jacobian are torch functions of the pose on the pose's device.
-The estimated-height lift (``depth_lift``) is not ported.
+closed-form Jacobian are torch functions of the pose on the pose's device,
+and so is the estimated-height lift of ``estimate_depth`` (``depth_lift``).
 """
 
 from __future__ import annotations
@@ -52,6 +52,21 @@ def grd_img2cam_ford(grd_H: int, grd_W: int, ori_grdH: int, ori_grdW: int):
     xyz_grd = xyz_w * (geo.CAMERA_HEIGHT / denom)
     mask = (xyz_grd[..., 2] > 0).astype(np.float32)
     return xyz_grd.astype(np.float32), mask, xyz_w.astype(np.float32)
+
+
+def depth_lift(xyz_w, depth):
+    """The estimated-height ground lift of ``estimate_depth`` (reference
+    models_ford.py:192-200): each unit-depth ray xyz_w [H, W, 3] (float32)
+    scaled to meet the plane ``depth`` [B, H, W, 1] (the depth head's
+    height, in its own dtype) above the ground, the denominator guarded by
+    ``geo.EPS``.  Returns Xc [B, H, W, 3] and the in-front mask [B, H, W]
+    (Xc_z > 0), float32.  As in JAX, ``CAMERA_HEIGHT - depth`` keeps the
+    depth's dtype (a bf16 head rounds it) before the float32 ray divides
+    it; differentiable with respect to ``depth``."""
+    y = xyz_w[..., 1:2]
+    denom = torch.where(y.abs() > geo.EPS, y, torch.full_like(y, geo.EPS))
+    Xc = xyz_w[None] * ((geo.CAMERA_HEIGHT - depth) / denom[None])
+    return Xc, (Xc[..., 2] > 0).to(torch.float32)
 
 
 def _to_sat(X):

@@ -1,10 +1,12 @@
 """KITTI geometry (port of ``highlyaccurate_tpu/geometry/kitti.py:31-193``
-for S2GP and ``:195-360`` for G2SP).
+for S2GP and ``:195-397`` for G2SP).
 
-Ground-plane rays (S2GP), the ground points under satellite pixels and the
-G2SP in-view column bound are precomputed on the host in numpy exactly as
-the JAX package does; the pose -> pixel projections and their closed-form
-Jacobians are torch functions of the pose on the pose's device.
+Ground-plane rays (S2GP: the geo projection's and the polar
+parameterization of ``proj`` polar and nn), the ground points under
+satellite pixels and the G2SP in-view column bound are precomputed on the
+host in numpy exactly as the JAX package does; the pose -> pixel
+projections and their closed-form Jacobians (G2SP ``proj="nn"``: the
+in-plane SE(2) warp) are torch functions of the pose on the pose's device.
 
 Layouts follow the JAX package: pose [B, 3] = (shift_u, shift_v, heading)
 in normalized units, uv [B, H, W, 2], d(uv)/d(pose) [B, H, W, 2, 3].
@@ -16,6 +18,7 @@ product (and no TF32 mode) is involved on the GPU.
 
 from __future__ import annotations
 
+import functools
 import itertools
 
 import numpy as np
@@ -56,6 +59,24 @@ def grd_img2cam(grd_H: int, grd_W: int, ori_grdH: int, ori_grdW: int,
     xyz_grd = xyz_w * w
     mask = (xyz_grd[..., 2] > 0).astype(np.float32)
     return xyz_grd.astype(np.float32), mask, xyz_w.astype(np.float32)
+
+
+def grd_img2cam_polar(grd_H: int, grd_W: int, max_radius: float = 30.0):
+    """Polar ground-plane parameterization (reference
+    models_kitti.py:684-698) of every non-geo ``proj``: host numpy xyz_grd
+    [H, W, 3] (row v at radius (1 - v/H) * max_radius, column u at angle
+    u/W * pi/4, on the plane y = camera height) and an all-ones mask
+    [H, W].  No unit-depth rays go with them (the ``gt_depth`` lift is
+    geo's)."""
+    v, u = np.meshgrid(np.arange(grd_H, dtype=np.float64),
+                       np.arange(grd_W, dtype=np.float64), indexing="ij")
+    theta = u / grd_W * np.pi / 4
+    radius = (1 - v / grd_H) * max_radius
+    z = radius * np.cos(np.pi / 4 - theta)
+    x = -radius * np.sin(np.pi / 4 - theta)
+    y = geo.CAMERA_HEIGHT * np.ones_like(z)
+    xyz_grd = np.stack([x, y, z], axis=-1).astype(np.float32)
+    return xyz_grd, np.ones((grd_H, grd_W), dtype=np.float32)
 
 
 def pose_to_cam2world(pose, rotation_range: float, shift_range_lat: float,
@@ -293,4 +314,53 @@ def g2sp_uv_jac(pose, XYZ1, camera_k, grd_H: int, grd_W: int,
         quotient(torch.cat([zeros33, dT_dv.expand(B, 3)[..., None]], -1)),
         quotient(torch.cat([dR_dtheta, torch.zeros(B, 3, 1, **f32)], -1)),
     ], dim=-1)                                            # [B, H, W, 2, 3]
+    return uv, duv, mask
+
+
+@functools.lru_cache(maxsize=8)
+def _inplane_consts(A: int, device: torch.device):
+    """``inplane_uv_jac``'s constants on ``device``, made once per (A,
+    device) rather than copied from the host every round: the pixel grid
+    (u, v) centred on the patch [A, A, 2] and the unit vectors of its u
+    and v shifts in uv, (-1, 0) and (0, 1)."""
+    i = np.arange(A, dtype=np.float32)
+    vg, ug = np.meshgrid(i, i, indexing="ij")
+    uv2 = torch.from_numpy(np.stack([ug, vg], axis=-1) - A / 2).to(device)
+    units = torch.tensor([[-1.0, 0.0], [0.0, 1.0]], device=device)
+    return uv2, units[0], units[1]
+
+
+def inplane_uv_jac(pose, satmap_sidelength: int, rotation_range: float,
+                   shift_range_lat: float, shift_range_lon: float):
+    """The in-plane SE(2) warp of G2SP ``proj="nn"`` (reference
+    models_kitti.py:289-331): each satellite pixel (u, v) rotated by the
+    heading about the patch centre and shifted by the pose in pixels.
+
+    pose [B, 3] normalized.  Returns uv [B, A, A, 2] (the pixel of the
+    re-laid-out ground map to sample), duv_dpose [B, A, A, 2, 3] and an
+    all-ones mask [B, A, A].  The 2x2 rotations are broadcast sums.
+    """
+    A = satmap_sidelength
+    mpp = _meter_per_pixel(A)
+    B = pose.shape[0]
+    f32 = dict(dtype=torch.float32, device=pose.device)
+    T = torch.stack([-(pose[:, 0] * shift_range_lon / mpp),
+                     pose[:, 1] * shift_range_lat / mpp], dim=-1)  # [B, 2]
+    rot_scale = rotation_range / 180.0 * np.pi
+    heading = pose[:, 2] * rot_scale
+    cos, sin = torch.cos(heading), torch.sin(heading)
+    R = torch.stack([cos, -sin, sin, cos], dim=-1).reshape(B, 2, 2)
+
+    uv2, e_u, e_v = _inplane_consts(A, pose.device)
+
+    def rotate(M):  # M [B, 2, 2] applied to every uv2 -> [B, A, A, 2]
+        return (M[:, None, None, :, :] * uv2[None, :, :, None, :]).sum(-1)
+
+    uv = rotate(R) + T[:, None, None, :] + A / 2
+    mask = torch.ones(uv.shape[:-1], **f32)
+    duv_du = (e_u * (shift_range_lon / mpp)).expand(uv.shape)
+    duv_dv = (e_v * (shift_range_lat / mpp)).expand(uv.shape)
+    dR_dtheta = rot_scale * torch.stack([-sin, -cos, cos, -sin],
+                                        dim=-1).reshape(B, 2, 2)
+    duv = torch.stack([duv_du, duv_dv, rotate(dR_dtheta)], dim=-1)
     return uv, duv, mask

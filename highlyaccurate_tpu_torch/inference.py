@@ -134,7 +134,8 @@ class Localizer:
             init_params(self.model, torch.Generator().manual_seed(seed))
         else:
             sd = (state_dict_from_jax(params) if params is not None
-                  else load_pth(pth_path))
+                  else load_pth(pth_path,
+                                depth=self.model.GrdFeatureNet.estimate_depth))
             self.model.load_state_dict(sd)
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
@@ -208,7 +209,7 @@ class Localizer:
 
         sizes = [self.batch_size]
         swap = (sample_layouts(extras["R_FL"])
-                if self._ford and cfg.use_banded_warp else None)
+                if self._ford and not self.model._gather else None)
         if swap is not None and swap.any() != swap.all():
             # one launch takes one kernel layout: serve each apart
             grd_imgs, out = np.asarray(grd_imgs), {}
@@ -319,7 +320,7 @@ class Localizer:
         cfg = self.cfg
         dev = self.device
         layout = (bool(sample_layouts(self._ford_R[None])[0])
-                  if self._ford and cfg.use_banded_warp else None)
+                  if self._ford and not self.model._gather else None)
         program = EvalProgram(self.model, cfg, self._ford_side_m, warm_start,
                               return_cov, ford_layout=layout)
         sizes = sorted(set(batch_sizes or [self.batch_size]))

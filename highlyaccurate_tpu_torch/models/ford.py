@@ -16,10 +16,19 @@ with the materialized Jacobian and the update rule with
 (NN); on the gather path (``use_banded_warp=0``) at every pixel of the
 kept rows, ``grid_sample_derivs`` and ``lm_update_implicit_pixel_norm``
 (JAX ``ford.py:198-215``), or ``grid_sample`` with the Jacobian and the
-update rule.  Only the bottom half of the ground rows enters the update;
-loss methods 1-3 gather every row in training.  No update rule reads the
-projected satellite confidence, so the port does not project it (JAX
-transforms it, 1/(1 + c), and drops it).  ``compute_dtype="bfloat16"`` gives bf16
+update rule.  Under the geo projection only the bottom half of the ground
+rows enters the update; any other ``proj`` keeps every row (the rays do
+not change) and takes the gather path, as in JAX (``ford.py:155, 169``);
+loss methods 1-3 gather every row in training.  ``estimate_depth`` gives
+the ground branch its depth heads (``VGGUnet(estimate_depth=True)``):
+every round lifts the unit-depth rays to the estimated height
+(``depth_lift``) and gathers on them with the materialized Jacobian and
+the update rule (JAX ``ford.py:110-112, 155-156, 200``), in training
+through the heads' gradients too; ``with_info`` raises ``ValueError``
+with it, as in JAX.  ``use_gt_depth`` reads nothing here, as in JAX.
+No update rule reads the projected satellite confidence, so the port
+does not project it (JAX transforms it, 1/(1 + c), and drops it).
+``compute_dtype="bfloat16"`` gives bf16
 features with the rules of KITTI S2GP (``feature_dtype``: float32
 parameters cast at each conv, a bf16 banded map, float32 target rows).
 Ford keeps the reference's differences from KITTI:
@@ -50,9 +59,9 @@ rigs in separate batches.  A caller that must not read the rig on the
 host (an exported program) fixes the layout with ``forward``'s ``layout``.
 
 ``state_dict`` keys follow the reference: ``SatFeatureNet.*``,
-``GrdFeatureNet.*``, ``damping`` (and ``NNrefine.*``).  ``check_supported``
-refuses what the port does not carry for Ford yet with
-``NotImplementedError``.
+``GrdFeatureNet.*`` (with ``estimate_depth`` its ``depth0..3.{1,3}.weight``),
+``damping`` (and ``NNrefine.*``).  ``check_supported`` refuses ADAM with
+``ValueError``, as the JAX model does.
 """
 
 from __future__ import annotations
@@ -70,22 +79,10 @@ from highlyaccurate_tpu_torch.solver.updates import (LMConfig, gn_update,
 
 
 def check_supported(cfg: Config):
-    """Raise ``NotImplementedError`` naming the first option of a Ford
-    ``cfg`` that this port does not carry yet: ``estimate_depth``,
-    ``use_gt_depth`` and a projection other than geo (queue A5, part 2).
-    An ``Optimizer`` Ford has no update rule for (ADAM) raises
-    ``ValueError``, as the JAX model does (``ford.py:251-252``)."""
-    refused = [
-        (bool(cfg.estimate_depth), "estimate_depth"),
-        (bool(cfg.use_gt_depth), "use_gt_depth"),
-        (cfg.proj != "geo", f"proj={cfg.proj!r}"),
-    ]
-    for bad, name in refused:
-        if bad:
-            raise NotImplementedError(
-                f"{name} is not supported by highlyaccurate_tpu_torch for "
-                "Ford yet (it carries LM_S2GP_Ford with the geo "
-                "projection)")
+    """An ``Optimizer`` Ford has no update rule for (ADAM) raises
+    ``ValueError``, as the JAX model does (``ford.py:251-252``).  Every
+    other option of the JAX Ford model runs (``use_gt_depth`` reads
+    nothing there, as in JAX)."""
     if cfg.Optimizer not in ("LM", "GN", "SGD", "NN"):
         raise ValueError(cfg.Optimizer)
 
@@ -118,6 +115,10 @@ class LMS2GPFord(S2GPBase):
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         check_supported(cfg)
+        depth = bool(cfg.estimate_depth)
+        # the lifted rays take the gather path's materialized update (JAX
+        # ford.py:155-156, 198-200)
+        self._gather_implicit = not depth
         self._init_common(
             cfg, LMConfig(active_dims=(0, 1, 2),
                           train_damping=bool(cfg.train_damping),
@@ -125,7 +126,25 @@ class LMS2GPFord(S2GPBase):
                           use_hessian=bool(cfg.use_hessian), reinit=True,
                           using_weight=bool(cfg.using_weight),
                           dropout=cfg.dropout),
-            (1, 3), ford_rays(cfg), device)
+            (1, 3), ford_rays(cfg), device,
+            gather=cfg.proj != "geo" or depth, lift=depth,
+            grd_kw=dict(estimate_depth=depth))
+
+    def _lifts(self, depths):
+        """With ``estimate_depth``, each level's rays lifted to the height
+        the ground branch estimates (``depth_lift``, JAX ``ford.py:
+        110-112``); else None."""
+        if depths is None:
+            return None
+        return [fgeom.depth_lift(getattr(self, f"rayw_{slot}"), d)
+                for slot, d in zip(self._slots, depths)]
+
+    def _pose_info(self, *args, **kwargs):
+        """The base's covariance; ``estimate_depth`` raises ``ValueError``,
+        as in JAX (its per-pixel duv leaves out the lift)."""
+        if self.cfg.estimate_depth:
+            raise ValueError("with_info does not support estimate_depth")
+        return super()._pose_info(*args, **kwargs)
 
     def _other_update(self, pose, sat, grd, conf, jac, generator, t: int,
                       adam):

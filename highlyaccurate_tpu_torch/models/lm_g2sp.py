@@ -41,6 +41,15 @@ G2SP has one update rule, LM: ``using_weight`` and every other
 ground confidence projected with the features.  Dropout and
 ``level_first`` change nothing in G2SP, as in JAX.
 
+The projection options leave the projective-line kernels, as in JAX
+(``lm_g2sp.py:230``): ``proj="polar"`` keeps ``g2sp_uv_jac`` on the gather
+path without the column restriction (j0 = 0); ``proj="nn"`` builds the
+ground branch with VGGUnet's G2S re-layout (``g2s_rearrange``: each ground
+map [H, W] becomes [2H, W/2], the satellite grid's size when 2 * grd_h ==
+sat == grd_w / 2) and samples it with the in-plane SE(2) warp
+``inplane_uv_jac`` over the whole satellite grid, in the rounds, the
+multi-start score and the covariance.
+
 Evaluation (mode ``"test"``) can also run the multi-start sweep
 (``pose_hypotheses > 1``, ``LMG2SP.hypotheses``: the hypotheses ride the
 batch axis through the same per-slot samplers, then the normalized
@@ -55,9 +64,10 @@ stay in line order; the satellite target is passed as a transposed view of
 the same columns, made once per level per forward (outside the rounds), so
 nothing is copied to sat-grid order: K6 takes the view's strides.
 
-``check_supported`` refuses what this port does not carry for G2SP yet
-(``proj`` other than geo) with ``NotImplementedError``; ``loss_method``
-other than 0 raises ``ValueError`` in training, as in the JAX package.
+``check_supported`` refuses a direction other than G2SP with
+``NotImplementedError``; ``loss_method`` other than 0 raises ``ValueError``
+in training, as in the JAX package, and ``corr`` (the correlation head)
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -95,18 +105,12 @@ SLOT_CHANNELS = (256, 128, 64, 16)  # VGGUnet feature channels per slot
 
 
 def check_supported(cfg: Config):
-    """Raise ``NotImplementedError`` naming the first option of a G2SP
-    ``cfg`` that this port does not carry yet: a projection other than geo
-    (queue A5, part 2)."""
-    refused = [
-        (cfg.direction != "G2SP", f"direction={cfg.direction!r}"),
-        (cfg.proj != "geo", f"proj={cfg.proj!r}"),
-    ]
-    for bad, name in refused:
-        if bad:
-            raise NotImplementedError(
-                f"{name} is not supported by highlyaccurate_tpu_torch for "
-                "G2SP yet (it carries KITTI G2SP with the geo projection)")
+    """Raise ``NotImplementedError`` for a direction other than G2SP (the
+    S2GP model is ``models/lm_s2gp.py``)."""
+    if cfg.direction != "G2SP":
+        raise NotImplementedError(
+            f"direction={cfg.direction!r} is not the G2SP model's "
+            "(build models/lm_s2gp.py's LMS2GP)")
 
 
 def fast_paths(cfg: Config) -> bool:
@@ -123,8 +127,8 @@ def projline_slots(cfg: Config) -> dict:
     projective-line kernels (else the gather sampler): the banded path is
     on, the fast paths are open (``fast_paths``) and ``projline_supported``
     takes the slot's ground map (JAX ``lm_g2sp.py:230-249``)."""
-    banded = (bool(cfg.use_banded_warp) and bool(cfg.banded_bf16_map)
-              and fast_paths(cfg))
+    banded = (cfg.proj == "geo" and bool(cfg.use_banded_warp)
+              and bool(cfg.banded_bf16_map) and fast_paths(cfg))
     return {slot: banded and projline_supported(
         *_level_hw(cfg, slot), SLOT_CHANNELS[slot])
         for slot in LEVEL_SLOTS[cfg.level]}
@@ -143,7 +147,10 @@ class LMG2SP(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
-        self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
+        # proj="nn" samples the re-laid-out ground maps (JAX lm_g2sp.py:56)
+        self._nn = cfg.proj == "nn"
+        self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg),
+                                     g2s_rearrange=self._nn)
         # raw damping, initialised at cfg.damping (reference
         # models_kitti.py:41); used only with train_damping
         self.damping = nn.Parameter(torch.full((1, 3), float(cfg.damping)))
@@ -155,18 +162,21 @@ class LMG2SP(nn.Module):
             using_weight=bool(cfg.using_weight))
         self._projline = projline_slots(cfg)
         self._implicit = bool(cfg.use_implicit_lm) and fast_paths(cfg)
-        # per slot: the first satellite column j0 and the ground points of
-        # the kept columns in line order [V, A, 4]; rows 0 and 1 fix each
+        # per slot: the first satellite column j0 (the restriction is the
+        # geo projection's, JAX lm_g2sp.py:80) and the ground points of the
+        # kept columns in line order [V, A, 4]; rows 0 and 1 fix each
         # line (its points are affine in the row index); with
         # use_implicit_lm=0 a gather slot's whole grid [A, A, 4], which the
-        # finest slot keeps in any case (multi-start score, covariance)
+        # finest slot keeps in any case (multi-start score, covariance);
+        # proj="nn" projects no ground points (inplane_uv_jac)
         self._col_start = {}
         for slot in self._slots:
             A = cfg.sat_size >> (3 - slot)
             Hg, Wg = _level_hw(cfg, slot)
             j0 = (geom.g2sp_inview_col_start(
                 A, Hg, Wg, cfg.rotation_range, cfg.shift_range_lat,
-                cfg.shift_range_lon) if cfg.g2sp_restrict_grid else 0)
+                cfg.shift_range_lon)
+                if cfg.g2sp_restrict_grid and cfg.proj == "geo" else 0)
             xyz1 = geom.warp_sat2real(A)[:, j0:]          # [A(i), V(j), 4]
             self._col_start[slot] = j0
             self.register_buffer(f"lines_{slot}", torch.from_numpy(
@@ -216,17 +226,18 @@ class LMG2SP(nn.Module):
         ranges = self._ranges()
         if not self._projline[slot]:
             if not self._implicit:
-                uv, duv, _ = geom.g2sp_uv_jac(
-                    pose, getattr(self, f"grid_{slot}"), camera_k, Hg, Wg,
-                    cfg.grd_h, cfg.grd_w, *ranges)        # [B, A, A, ...]
+                uv, duv, _ = self._grid_uv_jac(pose, slot, camera_k, Hg, Wg)
                 g_proj, jac = grid_sample(grd_map, uv, duv)
                 c_proj = (grid_sample(conf, uv)[0] if cfg.using_weight
                           else None)
                 return lm_update(pose, g_proj, target, jac, self.damping,
                                  self.lm_cfg, None, grd_conf=c_proj)
-            uv, duv, _ = geom.g2sp_uv_jac(
-                pose, getattr(self, f"lines_{slot}"), camera_k, Hg, Wg,
-                cfg.grd_h, cfg.grd_w, *ranges)            # [B, V, A, ...]
+            if self._nn:   # the whole satellite grid, in its own order
+                uv, duv, _ = geom.inplane_uv_jac(pose, A, *ranges)
+            else:
+                uv, duv, _ = geom.g2sp_uv_jac(
+                    pose, getattr(self, f"lines_{slot}"), camera_k, Hg, Wg,
+                    cfg.grd_h, cfg.grd_w, *ranges)        # [B, V, A, ...]
             out, dx, dy = grid_sample_derivs(grd_map, uv)
             return lm_update_implicit_pixel(pose, out, dx, dy, target, duv,
                                             self.damping, self.lm_cfg)
@@ -258,16 +269,26 @@ class LMG2SP(nn.Module):
         cfg = self.cfg
         return (cfg.rotation_range, cfg.shift_range_lat, cfg.shift_range_lon)
 
+    def _grid_uv_jac(self, pose, slot: int, camera_k, Hg: int, Wg: int):
+        """(uv, duv, mask) of every satellite pixel of the slot's grid
+        (JAX ``_project_grd_to_map``): ``g2sp_uv_jac`` on its ground
+        points, or with ``proj="nn"`` the in-plane warp."""
+        cfg = self.cfg
+        if self._nn:
+            return geom.inplane_uv_jac(pose, cfg.sat_size >> (3 - slot),
+                                       *self._ranges())
+        return geom.g2sp_uv_jac(pose, getattr(self, f"grid_{slot}"),
+                                camera_k, Hg, Wg, cfg.grd_h, cfg.grd_w,
+                                *self._ranges())
+
     def _project_grd_to_map(self, grd_feat, pose, camera_k):
         """The ground features [B, A, A, C] of the finest slot gathered at
         every satellite pixel of its grid at ``pose`` (no column
         restriction), and the in-front mask [B, A, A] (port of JAX
         ``_project_grd_to_map`` with ``with_jac=False``)."""
-        cfg = self.cfg
         Hg, Wg = grd_feat.shape[1:3]
-        uv, _, mask = geom.g2sp_uv_jac(
-            pose, getattr(self, f"grid_{self._slots[-1]}"), camera_k, Hg, Wg,
-            cfg.grd_h, cfg.grd_w, *self._ranges())
+        uv, _, mask = self._grid_uv_jac(pose, self._slots[-1], camera_k, Hg,
+                                        Wg)
         return grid_sample(grd_feat, uv)[0], mask
 
     def hypotheses(self, sat_feats, grd_feats, camera_k, init_pose,
@@ -310,9 +331,8 @@ class LMG2SP(nn.Module):
             raise ValueError("with_info does not support using_weight=1")
         A = sat_feats[-1].shape[1]
         Hg, Wg = grd_feats[-1].shape[1:3]
-        uv, duv, _ = geom.g2sp_uv_jac(
-            pose, getattr(self, f"grid_{self._slots[-1]}"), camera_k, Hg, Wg,
-            cfg.grd_h, cfg.grd_w, *self._ranges())
+        uv, duv, _ = self._grid_uv_jac(pose, self._slots[-1], camera_k, Hg,
+                                       Wg)
         out, dx, dy = grid_sample_derivs(grd_feats[-1], uv)
         ones = torch.ones(1, A, A, dtype=torch.float32, device=self.device)
         hess, rss, n_res = lm_information(out, dx, dy, sat_feats[-1], ones,
@@ -336,7 +356,8 @@ class LMG2SP(nn.Module):
             sat = sat_feats[lvl].to(torch.float32)
             j0 = self._col_start[slot]
             targets.append(sat[:, :, j0:].transpose(1, 2)
-                           if projline or self._implicit else sat)
+                           if projline or (self._implicit and not self._nn)
+                           else sat)
         pose, traj = pose0, []
         for _ in range(cfg.N_iters):
             for lvl, slot in enumerate(self._slots):

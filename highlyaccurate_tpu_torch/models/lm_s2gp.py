@@ -6,8 +6,10 @@
 Two VGGUnet branches give the satellite and ground feature pyramids; then
 N_iters x levels solver rounds refine the pose, iteration-major, or with
 ``level_first`` every iteration of the coarsest level first
-(``round_order``).  Only the bottom half of the ground rows enters the
-solver (the sky crop).  Each round takes one of the JAX package's branches
+(``round_order``).  Under the geo projection only the bottom half of the
+ground rows enters the solver (the sky crop; ``row_start``); every other
+``proj`` (polar, nn: the polar rays of ``grd_img2cam_polar``) keeps every
+row.  Each round takes one of the JAX package's branches
 (``S2GPBase._solver_round``):
 
 * banded (``use_banded_warp``, the default): ``s2gp_uv_jac`` at ground
@@ -25,8 +27,11 @@ solver (the sky crop).  Each round takes one of the JAX package's branches
     update rule (``lm_update``, ``sgd_update``, ``adam_update``, or the
     ``NNrefine`` head's step);
 * gather (``use_banded_warp=0``, the faithful default of ``--test 1
-  --import_pth``; and ``using_weight``, whose update reads the target
-  confidence): ``s2gp_uv_jac`` at every pixel of the kept rows, the
+  --import_pth``; ``using_weight``, whose update reads the target
+  confidence; ``proj`` other than geo; ``use_gt_depth``, whose
+  ``gt_depth=`` input lifts the rays per sample with the reference's
+  nearest rule, ``gt_depth_lift``, and without one keeps the flat rays):
+  ``s2gp_uv_jac`` at every pixel of the kept rows, the
   gather sampler (``ops/grid_sample.py``) on the features in their own
   dtype, then ``lm_update_implicit_pixel_norm`` or, with
   ``use_implicit_lm=0``, ``using_weight`` or another ``Optimizer``, the
@@ -53,8 +58,8 @@ makes it, and the target rows are read in float32, as in JAX.
 
 The random numbers of a forward (``Draws``) are, in order: the multi-start
 initial poses, then per round the dropout's (``dropout_keep``) and the
-re-init's.  ``check_supported`` refuses what this port does not carry yet
-(``proj`` other than geo, ``use_gt_depth``) with ``NotImplementedError``.
+re-init's.  ``check_supported`` refuses a direction other than S2GP with
+``NotImplementedError`` and an unknown ``Optimizer`` with ``ValueError``.
 """
 
 from __future__ import annotations
@@ -83,20 +88,13 @@ from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
 def check_supported(cfg: Config):
-    """Raise ``NotImplementedError`` naming the first option of ``cfg`` that
-    this port does not carry yet: a projection other than geo and
-    ``use_gt_depth`` (queue A5, part 2); an ``Optimizer`` KITTI S2GP has
+    """Raise ``NotImplementedError`` for a direction other than S2GP (the
+    G2SP model is ``models/lm_g2sp.py``); an ``Optimizer`` KITTI S2GP has
     no update rule for raises ``ValueError``, as the JAX model does."""
-    refused = [
-        (cfg.direction != "S2GP", f"direction={cfg.direction!r}"),
-        (cfg.proj != "geo", f"proj={cfg.proj!r}"),
-        (bool(cfg.use_gt_depth), "use_gt_depth"),
-    ]
-    for bad, name in refused:
-        if bad:
-            raise NotImplementedError(
-                f"{name} is not supported by highlyaccurate_tpu_torch yet "
-                "(it carries KITTI S2GP with the geo projection)")
+    if cfg.direction != "S2GP":
+        raise NotImplementedError(
+            f"direction={cfg.direction!r} is not the S2GP model's "
+            "(build models/lm_g2sp.py's LMG2SP)")
     if cfg.Optimizer not in ("LM", "SGD", "ADAM", "NN"):
         raise ValueError(f"unknown Optimizer {cfg.Optimizer}")
 
@@ -178,13 +176,44 @@ def _scaled_default_k(cfg: Config):
 
 def precompute_rays(cfg: Config):
     """Host-side per-level ground-plane rays (reference
-    models_kitti.py:622-635): [(xyz [H, W, 3], mask [H, W], xyz_w)] * 4."""
+    models_kitti.py:622-635): [(xyz [H, W, 3], mask [H, W], xyz_w)] * 4,
+    the geo projection's, or for any other ``proj`` the polar
+    parameterization's with xyz_w None (JAX ``lm_s2gp.py:162-168``)."""
     rays = []
     for lvl in range(4):
         h, w = _level_hw(cfg, lvl)
-        rays.append(geom.grd_img2cam(h, w, cfg.grd_h, cfg.grd_w,
-                                     camera_k=_scaled_default_k(cfg)))
+        if cfg.proj == "geo":
+            rays.append(geom.grd_img2cam(h, w, cfg.grd_h, cfg.grd_w,
+                                         camera_k=_scaled_default_k(cfg)))
+        else:
+            rays.append(geom.grd_img2cam_polar(h, w) + (None,))
     return rays
+
+
+def row_start(cfg: Config, H: int) -> int:
+    """The first of H ground rows the solver reads: the sky crop keeps the
+    bottom half under the geo projection, and every other ``proj`` keeps
+    every row (JAX ``half = H // 2 if cfg.proj == "geo" else 0``)."""
+    return H // 2 if cfg.proj == "geo" else 0
+
+
+def gt_depth_lift(xyz_w, gt_depth, h: int, w: int):
+    """The reference's gt-depth lift of one level (JAX ``lm_s2gp.py:
+    233-257``): gt_depth [B, H, W] subsampled to h x w by
+    ``F.interpolate(mode="nearest")``'s rule, source index floor(i * in /
+    out) in float32 (not the half-pixel centre), times the unit-depth rays
+    xyz_w [h, w, 3].  Returns xyz [B, h, w, 3] and the mask [B, h, w],
+    1.0 where the depth is not -1."""
+    H, W = gt_depth.shape[1:3]
+    dev = gt_depth.device
+
+    def index(n, size):
+        i = np.floor(np.arange(n, dtype=np.float32) * np.float32(size / n))
+        return torch.from_numpy(i.astype(np.int64)).to(dev)
+
+    depth = gt_depth.index_select(1, index(h, H)).index_select(
+        2, index(w, W))[..., None]
+    return xyz_w[None] * depth, (depth[..., 0] != -1).to(torch.float32)
 
 
 def level_slots(cfg: Config):
@@ -249,7 +278,7 @@ def eval_draws_per_batch(cfg: Config) -> int:
     if not (cfg.dropout > 0 and cfg.Optimizer == "LM"
             and cfg.direction == "S2GP"):
         return 0
-    kept = [(h - h // 2) * w for h, w in
+    kept = [(h - row_start(cfg, h)) * w for h, w in
             (_level_hw(cfg, slot) for slot in LEVEL_SLOTS[cfg.level])]
     return cfg.N_iters * sum(kept)
 
@@ -270,11 +299,13 @@ def round_order(cfg: Config):
 
 class S2GPBase(nn.Module):
     """What the KITTI S2GP and Ford models share: two VGGUnet branches, the
-    solver rounds over the bottom half of the ground rows on the banded
+    solver rounds over the kept ground rows (``row_start``) on the banded
     kernels or the gather sampler, the forward's mode handling and
     ``project_at_pose``.  A subclass gives the per-slot rays, ``_uv_jac``
-    (the satellite uv of ground points and their d(uv)/d(pose)) and
-    ``_swap``, the kernel layout (``banded_project``'s ``swap``)."""
+    (the satellite uv of ground points and their d(uv)/d(pose)),
+    ``_swap``, the kernel layout (``banded_project``'s ``swap``), and
+    ``_lifts``, the per-sample rays of a forward that lifts them (KITTI's
+    ``gt_depth=``, Ford's estimated depth)."""
 
     # whether ``using_weight`` takes the rounds off the banded path (KITTI
     # S2GP: the weighted update projects on the gather sampler, JAX
@@ -282,32 +313,37 @@ class S2GPBase(nn.Module):
     _weight_gathers = True
 
     def _init_common(self, cfg: Config, lm_cfg: LMConfig, damping_shape,
-                     rays, device):
-        """The networks (and ``NNrefine`` for ``Optimizer="NN"``), the
-        damping, the solver settings and, per slot of ``cfg.level``, from
-        ``rays`` (the per-slot (xyz [H, W, 3], mask [H, W], ...)) the
-        buffers of the kept rows: ``mask_{slot}``, and ``rows01_{slot}``
+                     rays, device, gather: bool = False, lift: bool = False,
+                     grd_kw=None):
+        """The networks (the ground one built with ``grd_kw``; and
+        ``NNrefine`` for ``Optimizer="NN"``), the damping, the solver
+        settings and, per slot of ``cfg.level``, from ``rays`` (the
+        per-slot (xyz [H, W, 3], mask [H, W], xyz_w)) the buffers of the
+        kept rows (``row_start``): ``mask_{slot}``, and ``rows01_{slot}``
         (their u = 0, 1 points [V, 2, 3]) for the banded path or
         ``xyz_{slot}`` (every point [V, W, 3]) for the gather path, the
         finest slot's ``xyz`` in any case (the multi-start score and the
-        covariance gather there), and with ``loss_method > 0`` every row's
+        covariance gather there); with ``loss_method > 0`` every row's
         ``rays_{slot}`` and ``raymask_{slot}`` (the rounds of such a
-        training forward gather the whole map)."""
+        training forward gather the whole map); with ``lift`` the
+        unit-depth rays ``rayw_{slot}`` [H, W, 3] that ``_lifts`` scales.
+        ``gather``: the option takes every round off the banded path."""
         self.cfg = cfg
         dev = resolve_device(device)
         self.SatFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
-        self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg))
+        self.GrdFeatureNet = VGGUnet(cfg.level, feature_dtype(cfg),
+                                     **(grd_kw or {}))
         self.damping = nn.Parameter(torch.zeros(damping_shape))
         if cfg.Optimizer == "NN":
             self.NNrefine = NNrefine(feature_dtype(cfg))
         self._slots = level_slots(cfg)
         self._rays = rays
         self.lm_cfg = lm_cfg
-        self._gather = not cfg.use_banded_warp or (
+        self._gather = gather or not cfg.use_banded_warp or (
             bool(cfg.using_weight) and self._weight_gathers)
         for slot in self._slots:
-            xyz, mask = rays[slot][:2]
-            half = xyz.shape[0] // 2
+            xyz, mask, xyz_w = rays[slot]
+            half = row_start(cfg, xyz.shape[0])
             buffers = {"mask": mask[half:]}
             if not self._gather:
                 buffers["rows01"] = xyz[half:, :2]
@@ -315,6 +351,8 @@ class S2GPBase(nn.Module):
                 buffers["xyz"] = xyz[half:]
             if cfg.loss_method > 0:
                 buffers.update(rays=xyz, raymask=mask)
+            if lift:
+                buffers["rayw"] = xyz_w
             for name, a in buffers.items():
                 self.register_buffer(f"{name}_{slot}", torch.from_numpy(
                     np.ascontiguousarray(a)), persistent=False)
@@ -326,9 +364,41 @@ class S2GPBase(nn.Module):
         return self.damping.device
 
     def extract_features(self, sat_map, grd_img):
-        sat_feats, sat_confs = self.SatFeatureNet(sat_map)
-        grd_feats, grd_confs = self.GrdFeatureNet(grd_img)
-        return sat_feats, sat_confs, grd_feats, grd_confs
+        """(sat_feats, sat_confs, grd_feats, grd_confs[, grd_depths]): the
+        depths where the ground branch estimates them."""
+        return (*self.SatFeatureNet(sat_map), *self.GrdFeatureNet(grd_img))
+
+    def _features(self, sat_map, grd_img, gt_depth=None):
+        """The forward's inputs to the rounds: (sat_feats, grd_feats,
+        grd_confs, the per-level lifted rays of ``_lifts`` or None)."""
+        sat_feats, _, grd_feats, grd_confs, *depths = self.extract_features(
+            sat_map, grd_img)
+        return (sat_feats, grd_feats, grd_confs,
+                self._lifts(depths[0] if depths else gt_depth))
+
+    def _lifts(self, src):
+        """Per level, the per-sample rays of every row (xyz [B, H, W, 3],
+        mask [B, H, W]) lifted from ``src`` (the forward's ``gt_depth`` or
+        the ground branch's depths), or None for the precomputed rays."""
+        return None
+
+    def _kept_points(self, slot: int, lift):
+        """(points, mask [1|B, V, W]) of the slot's kept rows: the
+        precomputed rays [V, W, 3], or the kept rows of a lift."""
+        if lift is None:
+            return (getattr(self, f"xyz_{slot}"),
+                    getattr(self, f"mask_{slot}")[None])
+        xyz, mask = lift
+        r = row_start(self.cfg, mask.shape[1])
+        return xyz[:, r:], mask[:, r:]
+
+    def _all_points(self, slot: int, lift):
+        """(points, mask [1|B, H, W]) of every row of the slot (loss
+        methods 1-3): the precomputed rays, or the lift."""
+        if lift is None:
+            return (getattr(self, f"rays_{slot}"),
+                    getattr(self, f"raymask_{slot}")[None])
+        return lift
 
     def _uv_jac(self, pose, points, A: int, geo: tuple, jac: bool = True):
         """Satellite uv [B, ..., 2] of ground points [..., 3] at ``pose``
@@ -361,9 +431,13 @@ class S2GPBase(nn.Module):
                 and bool(cfg.use_implicit_lm)
                 and bool(cfg.use_fused_moments))
 
+    # whether the gather path's implicit update is open (Ford's estimated
+    # depth closes it, JAX ford.py:198-200)
+    _gather_implicit = True
+
     def _solver_round(self, pose, slot: int, sat_feat, grd_rows, generator,
                       train: bool = False, geo: tuple = (), conf_rows=None,
-                      t: int = 0, adam=None, aux=None):
+                      t: int = 0, adam=None, aux=None, lift=None):
         """One (iteration, level) round, the branch the JAX package takes
         for this config (module docstring); returns the new pose.
 
@@ -375,15 +449,16 @@ class S2GPBase(nn.Module):
         the [m, v] list of ``Optimizer="ADAM"``, updated in place; ``aux``
         a list: the round gathers every ground row (loss methods 1-3) and
         appends its masked projection [B, H, W, C] and uv / A
-        [B, H, W, 2]."""
+        [B, H, W, 2]; ``lift`` the level's per-sample rays (``_lifts``),
+        which the gather path reads in place of the precomputed ones."""
         cfg = self.cfg
-        mask = getattr(self, f"mask_{slot}")
         A = sat_feat.shape[1]
         lm = cfg.Optimizer == "LM"
         implicit = (lm and bool(cfg.use_implicit_lm)
                     and not cfg.using_weight and aux is None)
         with_jac = cfg.Optimizer != "NN"
         if not self._gather and aux is None:
+            mask = getattr(self, f"mask_{slot}")
             uv01, duv01, swap = self._line_uv(pose, slot, A, geo)
             if self._fused_eval(train):
                 M, P0s, dPs = banded_project(cfg, sat_feat, uv01, duv01,
@@ -406,26 +481,26 @@ class S2GPBase(nn.Module):
                        + u[None, None, :, None, None] * dP[:, :, None])
                 jac = (du[..., None] * duv[:, :, :, None, 0, :]
                        + dv[..., None] * duv[:, :, :, None, 1, :])
-        elif implicit:
-            uv, duv = self._uv_jac(pose, getattr(self, f"xyz_{slot}"), A,
-                                   geo)
+            m = mask[None]
+        elif implicit and self._gather_implicit:
+            points, m = self._kept_points(slot, lift)
+            uv, duv = self._uv_jac(pose, points, A, geo)
             out, dx, dy = grid_sample_derivs(sat_feat, uv)
             return lm_update_implicit_pixel_norm(
-                pose, out, dx, dy, grd_rows, mask[None], duv, self.damping,
+                pose, out, dx, dy, grd_rows, m, duv, self.damping,
                 self.lm_cfg, generator)
         else:
-            points = getattr(self, f"xyz_{slot}" if aux is None
-                             else f"rays_{slot}")
+            points, m = (self._kept_points(slot, lift) if aux is None
+                         else self._all_points(slot, lift))
             uv, duv = self._uv_jac(pose, points, A, geo, jac=with_jac)
             out, jac = grid_sample(sat_feat, uv, duv)
             if aux is not None:
                 # the whole map for the loss, then the sky crop
-                full = getattr(self, f"raymask_{slot}")
-                aux.append((out * full[..., None],
-                            uv * full[..., None] / A))
-                V = mask.shape[0]
-                out, jac = out[:, -V:], None if jac is None else jac[:, -V:]
-        m = mask[None, :, :, None]
+                aux.append((out * m[..., None], uv * m[..., None] / A))
+                V = grd_rows.shape[1]
+                out, m = out[:, -V:], m[:, -V:]
+                jac = None if jac is None else jac[:, -V:]
+        m = m[..., None]
         sat = out * m
         grd = grd_rows * m
         conf = None if conf_rows is None else conf_rows * m
@@ -446,11 +521,12 @@ class S2GPBase(nn.Module):
 
     def _run_rounds(self, pose0, sat_feats, grd_feats, generator,
                     train: bool, geo: tuple = (), grd_confs=None,
-                    aux=None):
+                    aux=None, lifts=None):
         """The (iteration x level) rounds in ``round_order`` ->
         [B, N_iters, L, 3].  grd_confs: the ground confidence pyramid
         (read with ``using_weight``); ``aux``: a dict of one list per level
-        index, which each round of the level fills (``_solver_round``)."""
+        index, which each round of the level fills (``_solver_round``);
+        ``lifts``: the per-level per-sample rays (``_lifts``) or None."""
         cfg = self.cfg
         # constant across rounds: K1's map cast (the banded sampler casts
         # inside its autograd function, the gather sampler reads the
@@ -463,10 +539,10 @@ class S2GPBase(nn.Module):
         for lvl in range(len(self._slots)):
             sats.append(sat_feats[lvl] if self._gather
                         else sat_feats[lvl].to(map_dtype))
-            H = grd_feats[lvl].shape[1]
-            grds.append(grd_feats[lvl][:, H // 2:].to(torch.float32)
+            half = row_start(cfg, grd_feats[lvl].shape[1])
+            grds.append(grd_feats[lvl][:, half:].to(torch.float32)
                         .contiguous())
-            confs.append(grd_confs[lvl][:, H // 2:].to(torch.float32)
+            confs.append(grd_confs[lvl][:, half:].to(torch.float32)
                          if cfg.using_weight else None)
         B, n = pose0.shape[0], len(self.lm_cfg.active_dims)
         adam = [torch.zeros(B, n, device=pose0.device)] * 2
@@ -475,7 +551,8 @@ class S2GPBase(nn.Module):
             pose = self._solver_round(
                 pose, self._slots[lvl], sats[lvl], grds[lvl], generator,
                 train, geo, confs[lvl], t, adam,
-                None if aux is None else aux[lvl])
+                None if aux is None else aux[lvl],
+                None if lifts is None else lifts[lvl])
             traj.append(pose)
         traj = torch.stack(traj, dim=1)
         L = len(self._slots)
@@ -484,7 +561,7 @@ class S2GPBase(nn.Module):
         return traj.reshape(B, cfg.N_iters, L, 3)
 
     def hypotheses(self, sat_feats, grd_feats, init_pose, generator,
-                   geo: tuple = (), grd_confs=None):
+                   geo: tuple = (), grd_confs=None, lifts=None):
         """The multi-start sweep (JAX ``multi_hypothesis_test`` up to its
         argmin) on the feature pyramids of B samples: ``pose_hypotheses``
         = P initial poses per sample (``multi_starts``) ride the batch axis
@@ -492,31 +569,40 @@ class S2GPBase(nn.Module):
         path), then each final pose is scored by the normalized residual
         of the finest level's kept rows under the ray mask
         (``normalized_cost``).  ``grd_confs``: the ground confidence
-        pyramid, which ``using_weight`` reads.  Returns the final poses
-        [B, P, 3] and the costs [B, P]."""
+        pyramid, which ``using_weight`` reads; ``lifts``: the per-sample
+        rays (``_lifts``), repeated P times with the features (JAX tiles
+        ``gt_depth``).  Returns the final poses [B, P, 3] and the costs
+        [B, P]."""
         cfg = self.cfg
         B, P = sat_feats[0].shape[0], cfg.pose_hypotheses
         pose0 = multi_starts(generator, B, P, init_pose, cfg.rotation_range,
                              self.device)
-        sat_t = [f.repeat_interleave(P, 0) for f in sat_feats]
-        grd_t = [f.repeat_interleave(P, 0) for f in grd_feats]
-        conf_t = (None if grd_confs is None
-                  else [c.repeat_interleave(P, 0) for c in grd_confs])
+
+        def tile(fs):
+            return None if fs is None else [f.repeat_interleave(P, 0)
+                                            for f in fs]
+
+        sat_t, grd_t, conf_t = tile(sat_feats), tile(grd_feats), \
+            tile(grd_confs)
+        lifts_t = None if lifts is None else [tuple(tile(l)) for l in lifts]
         geo_t = self._tile_geo(geo, P)
         final = self._run_rounds(pose0, sat_t, grd_t, generator, False,
-                                 geo_t, conf_t)[:, -1, -1]
+                                 geo_t, conf_t, lifts=lifts_t)[:, -1, -1]
         # the finest slot's kept pixels gathered at the final poses (JAX
-        # _project with with_jac=False, row_start = H/2), both sides masked
-        slot = self._slots[-1]
-        uv = self._uv_jac(final, getattr(self, f"xyz_{slot}"),
-                          sat_t[-1].shape[1], geo_t, jac=False)[0]
-        mask = getattr(self, f"mask_{slot}")[:, :, None]
+        # _project with with_jac=False, row_start = half), both sides
+        # masked
+        points, mask = self._kept_points(
+            self._slots[-1], None if lifts_t is None else lifts_t[-1])
+        uv = self._uv_jac(final, points, sat_t[-1].shape[1], geo_t,
+                          jac=False)[0]
         H = grd_t[-1].shape[1]
+        mask = mask[..., None]
         cost = normalized_cost(grid_sample(sat_t[-1], uv)[0] * mask,
-                               grd_t[-1][:, H // 2:] * mask)
+                               grd_t[-1][:, row_start(cfg, H):] * mask)
         return final.reshape(B, P, 3), cost.reshape(B, P)
 
-    def _pose_info(self, sat_feats, grd_feats, pose, geo: tuple = ()):
+    def _pose_info(self, sat_feats, grd_feats, pose, geo: tuple = (),
+                   lifts=None):
         """[B, 3, 3] pose covariance (normalized pose order) at ``pose``
         from the solver's Gauss-Newton information (JAX ``_pose_info``):
         the gather sampler's values and derivatives at the finest slot's
@@ -527,29 +613,28 @@ class S2GPBase(nn.Module):
         cfg = self.cfg
         if cfg.using_weight:
             raise ValueError("with_info does not support using_weight=1")
-        slot = self._slots[-1]
-        uv, duv = self._uv_jac(pose, getattr(self, f"xyz_{slot}"),
-                               sat_feats[-1].shape[1], geo)
+        points, mask = self._kept_points(
+            self._slots[-1], None if lifts is None else lifts[-1])
+        uv, duv = self._uv_jac(pose, points, sat_feats[-1].shape[1], geo)
         out, dx, dy = grid_sample_derivs(sat_feats[-1], uv)
         H = grd_feats[-1].shape[1]
         hess, rss, n_res = lm_information(
-            out, dx, dy, grd_feats[-1][:, H // 2:],
-            getattr(self, f"mask_{slot}")[None], duv, cfg.active_pose_dims,
-            normalize=True)
+            out, dx, dy, grd_feats[-1][:, row_start(cfg, H):], mask, duv,
+            cfg.active_pose_dims, normalize=True)
         return pose_covariance(hess, rss, n_res, cfg.active_pose_dims)
 
     @torch.no_grad()
     def _test(self, sat_map, grd_img, init_pose, generator, with_info: bool,
-              geo: tuple = ()):
+              geo: tuple = (), gt_depth=None):
         """Mode 'test': the final pose [B, 3] (pose order) of the single
         start or, with ``pose_hypotheses > 1``, of the winning hypothesis;
         with ``with_info`` also its covariance [B, 3, 3], else None."""
-        sat_feats, _, grd_feats, grd_confs = self.extract_features(sat_map,
-                                                                   grd_img)
+        sat_feats, grd_feats, grd_confs, lifts = self._features(
+            sat_map, grd_img, gt_depth)
         B = sat_map.shape[0]
         if self.cfg.pose_hypotheses > 1:
             final, cost = self.hypotheses(sat_feats, grd_feats, init_pose,
-                                          generator, geo, grd_confs)
+                                          generator, geo, grd_confs, lifts)
             pose = final[torch.arange(B, device=final.device),
                          cost.argmin(1)]
         else:
@@ -557,31 +642,36 @@ class S2GPBase(nn.Module):
                                  device=self.device)
                      if init_pose is None else init_pose.to(torch.float32))
             pose = self._run_rounds(pose0, sat_feats, grd_feats, generator,
-                                    False, geo, grd_confs)[:, -1, -1]
-        cov = (self._pose_info(sat_feats, grd_feats, pose, geo)
+                                    False, geo, grd_confs,
+                                    lifts=lifts)[:, -1, -1]
+        cov = (self._pose_info(sat_feats, grd_feats, pose, geo, lifts)
                if with_info else None)
         return pose, cov
 
     @torch.no_grad()
-    def _project_at_pose(self, sat_map, grd_img, poses, geo: tuple = ()):
+    def _project_at_pose(self, sat_map, grd_img, poses, geo: tuple = (),
+                         gt_depth=None):
         """Per level (sat_feat, grd_feat, projection at each of ``poses``):
         the satellite features gathered at every ground pixel (all rows)
         by ``grid_sample``, zero where the ray misses the ground (JAX
-        ``_project`` with ``with_jac=False``)."""
-        sat_feats, _, grd_feats, _ = self.extract_features(sat_map, grd_img)
+        ``_project`` with ``with_jac=False``), on the lifted rays of a
+        forward that lifts them."""
+        sat_feats, grd_feats, _, lifts = self._features(sat_map, grd_img,
+                                                        gt_depth)
         outs = []
         for lvl, slot in enumerate(self._slots):
-            xyz, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(
-                self.device) for a in self._rays[slot][:2])
+            xyz, mask = (lifts[lvl] if lifts is not None else (
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in self._rays[slot][:2]))
             A = sat_feats[lvl].shape[1]
             proj = [grid_sample(sat_feats[lvl], self._uv_jac(
                 pose.to(torch.float32), xyz, A, geo, jac=False)[0])[0]
-                * mask[None, :, :, None] for pose in poses]
+                * mask[..., None] for pose in poses]
             outs.append((sat_feats[lvl], grd_feats[lvl], *proj))
         return outs
 
     def _trajectory(self, sat_map, grd_img, mode, init_pose, gt_pose,
-                    generator, geo=()):
+                    generator, geo=(), gt_depth=None):
         """Modes 'trajectory' and 'train': checks ``mode``, extracts the
         features and runs the single-start rounds (with autograd only in
         training) -> (the poses [B, N_iters, L, 3], the feature lists of
@@ -597,18 +687,19 @@ class S2GPBase(nn.Module):
         collect = train and self.cfg.loss_method > 0
         with torch.set_grad_enabled(train and torch.is_grad_enabled()):
             B = sat_map.shape[0]
-            sat_feats, _, grd_feats, grd_confs = self.extract_features(
-                sat_map, grd_img)
+            sat_feats, grd_feats, grd_confs, lifts = self._features(
+                sat_map, grd_img, gt_depth)
             pose0 = (torch.zeros(B, 3, dtype=torch.float32,
                                  device=self.device)
                      if init_pose is None else init_pose.to(torch.float32))
             aux = {lvl: [] for lvl in range(len(self._slots))} \
                 if collect else None
             traj = self._run_rounds(pose0, sat_feats, grd_feats, generator,
-                                    train, geo, grd_confs, aux)
+                                    train, geo, grd_confs, aux, lifts)
             if not collect:
                 return traj, None
-            gt = [self._project_gt(sat_feats[lvl], slot, gt_pose, geo)
+            gt = [self._project_gt(sat_feats[lvl], slot, gt_pose, geo,
+                                   None if lifts is None else lifts[lvl])
                   for lvl, slot in enumerate(self._slots)]
             lists = dict(ref_feat_list=grd_feats,
                          pred_feat_list=[torch.stack([a[0] for a in aux[l]],
@@ -619,15 +710,17 @@ class S2GPBase(nn.Module):
                          gt_uv_list=[g[1] for g in gt])
             return traj, lists
 
-    def _project_gt(self, sat_feat, slot: int, gt_pose, geo: tuple):
+    def _project_gt(self, sat_feat, slot: int, gt_pose, geo: tuple,
+                    lift=None):
         """The satellite features gathered at every ground pixel of the
         slot at ``gt_pose`` [B, 3] (model pose order), zero where the ray
         misses the ground, and the points' uv / A [B, H, W, 2] (zero
         there too)."""
         A = sat_feat.shape[1]
-        uv = self._uv_jac(gt_pose.to(torch.float32),
-                          getattr(self, f"rays_{slot}"), A, geo, jac=False)[0]
-        m = getattr(self, f"raymask_{slot}")[..., None]
+        points, m = self._all_points(slot, lift)
+        uv = self._uv_jac(gt_pose.to(torch.float32), points, A, geo,
+                          jac=False)[0]
+        m = m[..., None]
         return grid_sample(sat_feat, uv)[0] * m, uv * m / A
 
     def _outputs(self, mode, shift_lats, shift_lons, thetas, gt_lat, gt_lon,
@@ -656,6 +749,9 @@ class LMS2GP(S2GPBase):
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         check_supported(cfg)
+        geo = cfg.proj == "geo"
+        # a projection other than geo and use_gt_depth leave the banded
+        # path (JAX lm_s2gp.py:366-367)
         self._init_common(
             cfg, LMConfig(active_dims=cfg.active_pose_dims,
                           train_damping=bool(cfg.train_damping),
@@ -664,7 +760,23 @@ class LMS2GP(S2GPBase):
                           using_weight=bool(cfg.using_weight),
                           dropout=cfg.dropout),
             (1, 3) if cfg.rotation_range > 0 else (), precompute_rays(cfg),
-            device)
+            device, gather=not geo or bool(cfg.use_gt_depth),
+            lift=geo and bool(cfg.use_gt_depth))
+
+    def _lifts(self, gt_depth):
+        """With ``use_gt_depth`` and a ``gt_depth`` [B, H, W] (-1 where
+        unknown), each level's rays lifted by it (``gt_depth_lift``); else
+        None, the flat rays (JAX ``_level_rays``)."""
+        cfg = self.cfg
+        if gt_depth is None or not cfg.use_gt_depth:
+            return None
+        if cfg.proj != "geo":
+            raise ValueError(f"gt_depth= lifts the geo rays; proj="
+                             f"{cfg.proj!r} has no unit-depth rays")
+        return [gt_depth_lift(getattr(self, f"rayw_{slot}"),
+                              gt_depth.to(torch.float32),
+                              *_level_hw(cfg, slot))
+                for slot in self._slots]
 
     def _other_update(self, pose, sat, grd, conf, jac, generator, t: int,
                       adam):
@@ -691,7 +803,8 @@ class LMS2GP(S2GPBase):
     def forward(self, sat_map, grd_img, mode: str = "test",
                 init_pose: Optional[torch.Tensor] = None, *,
                 gt_pose: Optional[torch.Tensor] = None,
-                generator, with_info: bool = False):
+                generator, with_info: bool = False,
+                gt_depth: Optional[torch.Tensor] = None):
         """Feature extraction + unrolled solver.
 
         sat_map [B, A, A, 3], grd_img [B, H, W, 3] float32 on the model's
@@ -699,7 +812,10 @@ class LMS2GP(S2GPBase):
         ``pose_hypotheses > 1`` hypothesis 0); generator: the
         ``torch.Generator`` (on the model's device) or ``PresetDraws`` of
         the multi-start initial poses, drawn first, then per round of the
-        dropout's keep-set and of the out-of-range re-init (LM only).
+        dropout's keep-set and of the out-of-range re-init (LM only);
+        gt_depth [B, H, W] the per-pixel depth (-1 unknown), which
+        ``use_gt_depth`` lifts the geo rays with (``gt_depth_lift``; any
+        H x W; ignored without ``use_gt_depth``).
 
         mode 'test' -> (shift_lat, shift_lon, theta) each [B], and with
         ``with_info`` their pose covariance [B, 3, 3] (normalized units,
@@ -713,12 +829,12 @@ class LMS2GP(S2GPBase):
         """
         if mode == "test":
             pose, cov = self._test(sat_map, grd_img, init_pose, generator,
-                                   with_info)
+                                   with_info, gt_depth=gt_depth)
             # KITTI: u is longitudinal, v lateral
             out = (pose[:, 1], pose[:, 0], pose[:, 2])
             return out + (cov,) if with_info else out
         traj, lists = self._trajectory(sat_map, grd_img, mode, init_pose,
-                                       gt_pose, generator)
+                                       gt_pose, generator, gt_depth=gt_depth)
         # KITTI: u is longitudinal, v lateral
         gt = (None,) * 3 if gt_pose is None else (
             gt_pose[:, 1].float(), gt_pose[:, 0].float(),
@@ -726,7 +842,8 @@ class LMS2GP(S2GPBase):
         return self._outputs(mode, traj[..., 1], traj[..., 0], traj[..., 2],
                              *gt, lists)
 
-    def project_at_pose(self, sat_map, grd_img, pred_pose, gt_pose):
+    def project_at_pose(self, sat_map, grd_img, pred_pose, gt_pose,
+                        gt_depth=None):
         """Per-level feature maps for ``--visualize`` PCA dumps (port of JAX
         ``lm_s2gp.py:559``; the reference's in-forward visualization
         inputs, models_kitti.py:1285-1293).
@@ -736,6 +853,8 @@ class LMS2GP(S2GPBase):
         grd_feat [B, H', W', C], proj_at_pred, proj_at_gt [B, H', W', C]):
         the satellite features projected into every ground pixel at each
         pose by the gather sampler, as in JAX, float32, zero where the ray
-        misses the ground.
+        misses the ground; with ``use_gt_depth``, on the rays ``gt_depth``
+        lifts (as ``forward``'s).
         """
-        return self._project_at_pose(sat_map, grd_img, (pred_pose, gt_pose))
+        return self._project_at_pose(sat_map, grd_img, (pred_pose, gt_pose),
+                                     gt_depth=gt_depth)

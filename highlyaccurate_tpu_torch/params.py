@@ -3,13 +3,15 @@
 
 * ``state_dict_from_jax``: the JAX package's LMS2GP, LMG2SP or LMS2GPFord
   params pytree (numpy or array leaves) -> this port's ``state_dict`` (the
-  reference's key layout; the three models have the same keys, and
-  ``Optimizer="NN"`` adds ``NNrefine.*``).
+  reference's key layout; the three models have the same keys,
+  ``Optimizer="NN"`` adds ``NNrefine.*`` and Ford's ``estimate_depth`` the
+  ground branch's ``depth0..3.{1,3}.weight``).
 * ``load_pth``: a reference ``.pth`` -> the keys the port's models hold.
 * ``init_params``: fresh weights drawn like the JAX model's own
   initialisation (flax ``Conv`` and ``Dense`` defaults: LeCun-normal
-  truncated at two standard deviations, zero bias; damping 0 for S2GP and
-  Ford, ``cfg.damping`` for G2SP), from a ``torch.Generator``.  The
+  truncated at two standard deviations, zero bias; the depth heads' last
+  conv zero; damping 0 for S2GP and Ford, ``cfg.damping`` for G2SP), from
+  a ``torch.Generator``.  The
   distribution matches; the numbers do not.
 """
 
@@ -26,6 +28,7 @@ from highlyaccurate_tpu_torch.models.nnrefine import WIDTHS
 _ENC = ("conv0", "conv2", "conv5", "conv7", "conv10", "conv12", "conv14")
 _DEC = {"dec1": "conv_dec1", "dec2": "conv_dec2", "dec3": "conv_dec3"}
 _CONF = ("conf0", "conf1", "conf2", "conf3")
+_DEPTH = ("depth0", "depth1", "depth2", "depth3")  # JAX vggunet.py:233
 _BRANCHES = ("SatFeatureNet", "GrdFeatureNet")
 
 
@@ -46,7 +49,9 @@ def _branch(p: dict, prefix: str) -> dict:
         sd[f"{prefix}{name}.weight"] = _hwio_to_oihw(k)
         sd[f"{prefix}{name}.bias"] = torch.from_numpy(
             np.asarray(p[name]["bias"], np.float32).copy())
-    for jname, tname in _DEC.items():
+    # decoder stages, and the depth heads a Ford ground branch with
+    # estimate_depth holds (JAX vggunet.py:279-283)
+    for jname, tname in list(_DEC.items()) + [(d, d) for d in _DEPTH]:
         if jname not in p:
             continue
         sd[f"{prefix}{tname}.1.weight"] = _hwio_to_oihw(
@@ -87,7 +92,8 @@ def _nnrefine(p: dict) -> dict:
 def state_dict_from_jax(params: dict) -> dict:
     """JAX LMS2GP / LMG2SP / LMS2GPFord params pytree -> port
     ``state_dict`` (HWIO -> OIHW; ``dec1/conv_a`` -> ``conv_dec1.1``;
-    ``conf0/conv`` -> ``conf0.1``; ``nn_refine`` -> ``NNrefine.*``)."""
+    ``conf0/conv`` -> ``conf0.1``; ``depth0/conv_b`` -> ``depth0.3``;
+    ``nn_refine`` -> ``NNrefine.*``)."""
     sd = {}
     for br in _BRANCHES:
         sd.update(_branch(params[br], f"{br}."))
@@ -98,24 +104,27 @@ def state_dict_from_jax(params: dict) -> dict:
     return sd
 
 
-def load_pth(path: str) -> dict:
+def load_pth(path: str, depth: bool = False) -> dict:
     """A reference ``.pth`` state_dict, restricted to the keys of the two
-    feature branches, the damping and ``NNrefine.*`` (other heads belong
-    to options this port refuses)."""
+    feature branches (the ground branch's depth heads among them), the
+    damping and ``NNrefine.*``; a depth head that a model without
+    ``estimate_depth`` does not hold is dropped (JAX ``import_pth`` reads
+    the heads only with it)."""
     sd = torch.load(path, map_location="cpu", weights_only=True)
     if hasattr(sd, "state_dict"):
         sd = sd.state_dict()
     return {k: v for k, v in sd.items()
-            if k.split(".", 1)[0] in _BRANCHES + ("NNrefine",)
-            or k == "damping"}
+            if (k.split(".", 1)[0] in _BRANCHES + ("NNrefine",)
+                or k == "damping")
+            and not (k.startswith("GrdFeatureNet.depth") and not depth)}
 
 
 @torch.no_grad()
 def init_params(model: nn.Module, generator: torch.Generator):
     """Re-draw every conv and dense kernel as flax's default initialiser
-    does (variance 1/fan_in, truncated normal at +-2 std), zero the biases,
-    and
-    set the damping as the JAX model initialises it (0 for S2GP and Ford,
+    does (variance 1/fan_in, truncated normal at +-2 std), zero the biases
+    and the depth heads' last conv (JAX ``kernel_init=zeros``), and set the
+    damping as the JAX model initialises it (0 for S2GP and Ford,
     ``cfg.damping`` for G2SP, lm_g2sp.py:58-60).  Draws on the CPU, then
     copies to the model's device."""
     stddev = 1.0 / 0.87962566103423978  # std of N(0,1) truncated to [-2, 2]
@@ -129,6 +138,9 @@ def init_params(model: nn.Module, generator: torch.Generator):
             mod.weight.copy_(w)
             if mod.bias is not None:
                 mod.bias.zero_()
+    for name, mod in model.named_modules():
+        if name.rsplit(".", 1)[-1] in _DEPTH:
+            mod[3].weight.zero_()
     g2sp = model.cfg.direction == "G2SP"
     for name, p in model.named_parameters():
         if name == "damping":

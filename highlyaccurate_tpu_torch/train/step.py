@@ -9,6 +9,8 @@ them yet (queue A6, ``torch.distributed``).
     state = create_train_state(cfg, model)
     step = make_train_step(model, cfg)
     state, metrics = step(state, sat, grd, gt_pose, generator)          # S2GP
+    state, metrics = step(state, sat, grd, gt_pose, generator,
+                          gt_depth=depth)          # S2GP with use_gt_depth
     state, metrics = step(state, sat, grd, camera_k, gt_pose, generator)  # G2SP
     step = make_train_step(model, cfg, ford_side_m=512 * 0.22)          # Ford
     state, metrics = step(state, sat, grd, R_FL, T_FL, gt_pose, generator)
@@ -58,7 +60,9 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
     Ford rig may stay on the host, which spares the forward a read from
     the device for its kernel layout; see ``models/ford.py``);
     generator: the re-init ``torch.Generator`` on that device (G2SP never
-    re-inits and ignores it; it keeps the JAX step's rng argument).  The
+    re-inits and ignores it; it keeps the JAX step's rng argument);
+    gt_depth (S2GP with ``use_gt_depth`` only): the [B, H, W] depth the
+    forward lifts its rays with (the JAX step takes none).  The
     model's parameters are updated in place.  metrics: the JAX step's
     names, as detached tensors on the device ("loss" scalar, the rest [L]).
     ``freeze_backbones`` zeroes the feature networks' gradients before
@@ -69,7 +73,7 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
     frozen = ([p for net in (model.SatFeatureNet, model.GrdFeatureNet)
                for p in net.parameters()] if freeze_backbones else [])
 
-    def step(state: TrainState, sat, grd, *rest):
+    def step(state: TrainState, sat, grd, *rest, gt_depth=None):
         if ford:
             R_FL, T_FL, gt_pose, generator = rest
             args = (ford_side_m, R_FL, T_FL)
@@ -79,7 +83,7 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
             args, fwd = (camera_k,), {}
         else:
             gt_pose, generator = rest
-            args, fwd = (), dict(generator=generator)
+            args, fwd = (), dict(generator=generator, gt_depth=gt_depth)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         out = model(sat, grd, *args, mode="train", gt_pose=gt_pose, **fwd)

@@ -31,8 +31,9 @@ prediction left the re-init range).
   same results;
 * ``--test 1 --pose_hypotheses 2`` runs the multi-start sweep and writes
   its result files;
-* the refusals name their option; ``--visualize`` and ``--profile_dir``
-  write their files.
+* ``--estimate_depth 1``, ``--use_gt_depth 1`` and ``--proj polar``
+  evaluate like the JAX CLI; ``--visualize`` and ``--profile_dir`` write
+  their files.
 """
 
 import glob
@@ -283,16 +284,40 @@ def test_write_ford_matches_jax(tmp_path):
         np.testing.assert_array_equal(t[k], j[k])
 
 
-REFUSED = {"estimate_depth": ["--estimate_depth", "1"],
-           "use_gt_depth": ["--use_gt_depth", "1"],
-           "proj": ["--proj", "polar"]}
+# The projection and depth flags (refused before), each
+# ``evaluate`` of both CLIs on one init, on the gather sampler at float32:
+# ``--estimate_depth 1`` (the depth heads' last conv drawn non-zero, so the
+# lift moves the rays; the gather path either way), ``--use_gt_depth 1``
+# (which neither Ford model reads) and ``--proj polar`` (no sky crop);
+# within ``EVAL_ATOL`` (measured 3.3e-5, 1.3e-6 and 1.3e-6 m, deg).
+FLAGS = {"estimate_depth": ["--estimate_depth", "1"],
+         "use_gt_depth": ["--use_gt_depth", "1"],
+         "proj": ["--proj", "polar"]}
 
 
-@pytest.mark.parametrize("name", list(REFUSED))
-def test_refused_options_name_themselves(tmp_path, name):
-    with pytest.raises(NotImplementedError, match=name):
-        cli.main(["--test", "1", "--device", "cpu", "--save_root",
-                  str(tmp_path)] + GEOM + REFUSED[name])
+@pytest.mark.parametrize("name", list(FLAGS))
+def test_depth_and_proj_flags_evaluate_like_jax(tmp_path, name):
+    from test_torch_ford_depth import _drawn_depth_heads
+    argv = EVAL + GATHER + FLAGS[name]
+    params = _jax_params(5)
+    if name == "estimate_depth":
+        grd = np.random.RandomState(5).rand(1, 64, 256, 3).astype(np.float32)
+        params["GrdFeatureNet"] = _drawn_depth_heads(
+            JVGGUnet(level=3, estimate_depth=True).init(
+                jax.random.PRNGKey(105), jnp.asarray(grd))["params"], 5)
+    jargs = jcli.parse_args(argv)
+    jcfg = jconfig_from_args(jargs)
+    jmodel = JLMS2GPFord(cfg=jcfg)
+    jdir = str(tmp_path / "jax")
+    jcli.evaluate(jmodel, jcfg, params, jargs, jdir, 0, 1e9,
+                  eval_step=jstep.make_eval_step(jmodel, jcfg,
+                                                 ford_side_m=128 * 0.22))
+    want = _preds(jdir)
+    _assert_in_range(want)
+    assert np.abs(want).max() > 1e-2
+    got = _port_eval(tmp_path, argv, params, "port")
+    print(name, "eval max |port - JAX|:", np.abs(got - want).max())
+    np.testing.assert_allclose(got, want, rtol=0, atol=EVAL_ATOL)
 
 
 def test_pose_hypotheses_evaluates(tmp_path):

@@ -1,7 +1,8 @@
 """``Localizer.export`` and ``ExportedLocalizer`` on the CPU: an artifact
 serves the same outputs as the live ``Localizer`` it came from (KITTI
 S2GP with batch sizes [1, 2], G2SP, Ford, S2GP with ``warm_start`` and
-``return_cov``, with ``dropout`` and with ``Optimizer="NN"``), and it
+``return_cov``, with ``dropout`` and with ``Optimizer="NN"``, G2SP with
+``proj="nn"`` and Ford with ``estimate_depth``), and it
 refuses what it cannot serve: another format (a
 JAX artifact included), another device type, ``init_pose`` without
 ``warm_start``, and a Ford rig of the other kernel layout.  On the card
@@ -38,6 +39,14 @@ CASES = {
     # batch (an input of the program), and NN's head, which draws nothing
     "dropout": (dict(S2GP, dropout=1), {}, {}),
     "nn": (dict(S2GP, Optimizer="NN"), {}, {}),
+    # the projection and depth options export as JAX's do: G2SP nn (the
+    # re-laid-out ground branch, the in-plane warp) and Ford's estimated
+    # depth (the depth heads, the lifted rays), both on the gather sampler
+    "g2sp_nn": (dict(WIDE, direction="G2SP", proj="nn"),
+                dict(camera_k=_scaled_default_k(Config(**WIDE))), {}),
+    "ford_depth": (dict(WIDE, estimate_depth=1),
+                   dict(ford_extrinsics=(FORD_R, FORD_T),
+                        ford_side_m=128 * 0.22), {}),
 }
 
 
@@ -91,9 +100,11 @@ def test_exported_serves_like_live(artifacts, name):
             print(name, k, "max |exported - live|:", err)
             assert err <= 1e-6 * max(1.0, float(np.abs(v).max())), k
     meta = srv.meta
-    assert meta["device"] == "cpu" and meta["ford"] == (name == "ford")
-    assert meta["g2sp"] == (name == "g2sp")
-    assert meta["draws_per_image"] == (0 if name in ("g2sp", "nn") else 2)
+    assert meta["device"] == "cpu"
+    assert meta["ford"] == (name in ("ford", "ford_depth"))
+    assert meta["g2sp"] == (name in ("g2sp", "g2sp_nn"))
+    assert meta["draws_per_image"] == (
+        0 if name in ("g2sp", "g2sp_nn", "nn") else 2)
     # dropout: one number per kept pixel of the 4 x 16 level's 2 kept rows
     assert meta["draws_per_batch"] == (32 if name == "dropout" else 0)
 

@@ -1,8 +1,9 @@
 """Port parity for the Ford model: ``LMS2GPFord`` trajectories and the Ford
 ``Localizer`` against the JAX package (``use_banded_warp=2``: the Pallas
 kernels in interpret mode) on the same weights, images and extrinsics; the
-JAX params importer and ``init_params`` on the Ford model; and the options
-and inputs the port refuses.
+JAX params importer and ``init_params`` on the Ford model; the projection
+and depth options served like JAX's ``Localizer``; and what the port
+refuses.
 
 ``TINY`` is a 64x64 satellite patch (14.08 m at the Ford data's 0.22 m per
 pixel), a 32x128 ground input and level 3.  The rig is near identity, as in
@@ -333,34 +334,60 @@ def test_jax_ford_params_load_and_init():
     assert frozen.damping.shape == (1, 3)
 
 
-REFUSED = {
-    "Optimizer=ADAM": dict(Optimizer="ADAM"),
-    "estimate_depth": dict(estimate_depth=1),
-    "use_gt_depth": dict(use_gt_depth=1), "proj": dict(proj="polar"),
-}
+REFUSED = {"Optimizer=ADAM": dict(Optimizer="ADAM")}
 
 
 @pytest.mark.parametrize("opt", list(REFUSED.values()), ids=list(REFUSED))
 def test_unsupported_ford_options_raise(opt):
-    """What the port does not carry for Ford yet raises
-    ``NotImplementedError`` naming it; ADAM, which Ford has no update rule
-    for, ``ValueError``, as the JAX model does (its forward raises)."""
+    """ADAM, which Ford has no update rule for, raises ``ValueError``, as
+    the JAX model does (its forward raises)."""
     from highlyaccurate_tpu_torch.inference import Localizer
-    name = next(iter(opt))
-    adam = opt.get("Optimizer") == "ADAM"
-    with pytest.raises(ValueError if adam else NotImplementedError,
-                       match="ADAM" if adam else name):
+    with pytest.raises(ValueError, match="ADAM"):
         Localizer(Config(**TINY, **opt), random_init=True, device="cpu",
                   ford_extrinsics=(R_FL, T_FL), ford_side_m=SIDE_M)
-    if adam:
-        sat, grd = _images(0)
-        R, T = _rig()
-        with pytest.raises(ValueError, match="ADAM"):
-            JLMS2GPFord(cfg=JConfig(**TINY, **opt)).init(
-                {"params": jax.random.PRNGKey(0),
-                 "lm": jax.random.PRNGKey(1)}, jnp.asarray(sat),
-                jnp.asarray(grd), SIDE_M, jnp.asarray(R), jnp.asarray(T),
-                mode="trajectory")
+    sat, grd = _images(0)
+    R, T = _rig()
+    with pytest.raises(ValueError, match="ADAM"):
+        JLMS2GPFord(cfg=JConfig(**TINY, **opt)).init(
+            {"params": jax.random.PRNGKey(0),
+             "lm": jax.random.PRNGKey(1)}, jnp.asarray(sat),
+            jnp.asarray(grd), SIDE_M, jnp.asarray(R), jnp.asarray(T),
+            mode="trajectory")
+
+
+# The projection and depth options (refused before), each
+# ``Localizer.predict`` against the JAX Localizer on one init (fp32 map,
+# one iteration; the depth heads' last conv drawn
+# non-zero, tests/test_torch_ford_depth.py): ``estimate_depth`` (the lifted
+# rays, gather path), ``use_gt_depth`` (read by neither framework) and
+# ``proj="polar"`` (no sky crop, gather path); atol 1e-3 m / deg as
+# test_localizer_matches_jax (measured 4.5e-6, 7.2e-5 and 1.7e-6).
+SERVED = {"estimate_depth": dict(estimate_depth=1),
+          "use_gt_depth": dict(use_gt_depth=1), "proj": dict(proj="polar")}
+
+
+@pytest.mark.parametrize("name", list(SERVED))
+def test_depth_and_proj_options_serve_like_jax(name):
+    from highlyaccurate_tpu.inference import Localizer as JLocalizer
+    from highlyaccurate_tpu_torch.inference import Localizer
+    from test_torch_ford_depth import depth_params
+
+    kw = dict(TINY, N_iters=1, banded_bf16_map=0, **SERVED[name])
+    params = depth_params(60) if name == "estimate_depth" else _params(60)
+    sat, grd = _images(61, n=3)
+    rig = dict(ford_extrinsics=(R_FL, T_FL), ford_side_m=SIDE_M)
+    want = JLocalizer(JConfig(use_banded_warp=2, **kw), params=params,
+                      batch_size=2, **rig).predict(sat, grd)
+    loc = Localizer(Config(**kw), params=params, batch_size=2,
+                    device="cpu", **rig)
+    assert loc.model._gather == (name != "use_gt_depth")
+    got = loc.predict(sat, grd)
+    keys = ("lateral_m", "longitudinal_m", "heading_deg")
+    g = np.stack([got[k] for k in keys], -1)
+    w = np.stack([want[k] for k in keys], -1)
+    assert np.abs(w[:, :2]).max() < 2.5 * 20 and np.abs(w).max() > 1e-2
+    print(name, "max |port - JAX|:", np.abs(g - w).max())
+    np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
 
 
 # Options the port carries since the gather path came (they were refused

@@ -1,9 +1,10 @@
 """Port parity for the serving API and the port's package rules:
 ``Localizer.predict`` (S2GP) on the CPU against the JAX ``Localizer`` on the
-same params; the port imports nothing of JAX; options the port does not
-carry raise ``NotImplementedError``; with no GPU, the default device
-raises.  The G2SP ``Localizer`` is in tests/test_torch_lm_g2sp.py; the
-covariance, multi-start and export in tests/test_torch_serving_api.py and
+same params, with the solver and projection options; the port imports
+nothing of JAX; what the port does not carry raises
+``NotImplementedError``; with no GPU, the default device raises.  The G2SP
+``Localizer`` is in tests/test_torch_lm_g2sp.py; the covariance,
+multi-start and export in tests/test_torch_serving_api.py and
 tests/test_torch_export.py."""
 
 import ast
@@ -96,18 +97,6 @@ def test_port_imports_no_jax():
                                "highlyaccurate_tpu"), f"{f}: imports {mod}"
 
 
-UNSUPPORTED = [dict(proj="polar"), dict(use_gt_depth=1)]
-
-
-@pytest.mark.parametrize("opt", UNSUPPORTED,
-                         ids=[next(iter(o)) for o in UNSUPPORTED])
-def test_unsupported_options_raise(opt):
-    from highlyaccurate_tpu_torch.inference import Localizer
-    name = next(iter(opt))
-    with pytest.raises(NotImplementedError, match=name):
-        Localizer(Config(**TINY, **opt), random_init=True, device="cpu")
-
-
 # Options the port serves since the gather path came (they were refused
 # before), each ``Localizer.predict`` against the JAX Localizer on one
 # init at TINY's sizes, one iteration:
@@ -125,7 +114,11 @@ def test_unsupported_options_raise(opt):
 #   ``using_weight`` (the gather sampler, the confidence weight),
 #   ``dropout`` (K2 and ``lm_update_implicit``; both frameworks keep the
 #   same pixels, ``_feed_keep``) and ``level_first``, at N_iters=2 so the
-#   order matters (measured 1.4e-6, 1.4e-6, 1.2e-4 and 6.6e-5 m, deg).
+#   order matters (measured 1.4e-6, 1.4e-6, 1.2e-4 and 6.6e-5 m, deg);
+# * the projection options (refused before):
+#   ``proj="polar"`` (the polar rays, every row, the gather sampler) and
+#   ``use_gt_depth`` (the gather sampler on the flat rays: ``predict``
+#   takes no depth, as in JAX); measured 1.7e-6 and 3.8e-6 m, deg.
 # atol 1e-3 m / deg as above (measured 5.3e-5, 3.8e-6 and 5.1e-5), except
 # where a
 # bf16 map or bf16 features enter: G2SP's projective-line levels sample a
@@ -151,6 +144,8 @@ LIFTED = {
     "dropout": (dict(dropout=1, banded_bf16_map=0), dict(use_banded_warp=2)),
     "level_first": (dict(level_first=1, N_iters=2, banded_bf16_map=0),
                     dict(use_banded_warp=2)),
+    "proj": (dict(proj="polar"), {}),
+    "use_gt_depth": (dict(use_gt_depth=1), {}),
 }
 # the multi-start initial poses of one batch of 2 [2, 4, 3]; hypothesis 0
 # is the zero start in both frameworks

@@ -1,7 +1,8 @@
 """Port parity for the G2SP model: ``lm_update_implicit_pixel``, one solver
 round, the ``LMG2SP`` trajectory and the G2SP ``Localizer`` against the JAX
 package (``use_banded_warp=2``: the projective-line kernel in interpret
-mode) on the same weights and images; and the options the port refuses.
+mode) on the same weights and images; the projections served like JAX;
+and what the port refuses.
 
 ``TINY`` (128x128 satellite, 64x256 ground, level 3) keeps every level's
 ground map on the projective-line sampler (8 / 16 / 32 rows; at a 32-row
@@ -32,7 +33,7 @@ from highlyaccurate_tpu.models.lm_g2sp import LMG2SP as JLMG2SP
 from highlyaccurate_tpu.models.vggunet import VGGUnet as JVGGUnet
 from highlyaccurate_tpu.solver import updates as ju
 from highlyaccurate_tpu_torch import Config
-from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
+from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP, projline_slots
 from highlyaccurate_tpu_torch.ops.projline import projline_supported
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
 from highlyaccurate_tpu_torch.solver import updates as tu
@@ -234,8 +235,6 @@ def test_localizer_matches_jax():
                            tloc.predict(sat, grd, camera_k=ks)["lateral_m"])
 
 
-REFUSED = {"proj": dict(proj="polar")}
-
 # Options the port carries since the gather path came (they were refused
 # before): ``banded_bf16_map=0`` leaves the banded path in JAX
 # (lm_g2sp.py:230-234), as ``use_banded_warp=0`` does, so every level
@@ -293,13 +292,36 @@ def test_lifted_option_matches_jax(name):
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("opt", list(REFUSED.values()), ids=list(REFUSED))
-def test_unsupported_g2sp_options_raise(opt):
+# The projections other than geo (refused before), ``Localizer.predict``
+# against the JAX Localizer on one init, one iteration: ``proj="nn"`` (the
+# re-laid-out ground branch and the in-plane warp over the whole satellite
+# grid) and ``proj="polar"`` (``g2sp_uv_jac`` without the column
+# restriction); both on the gather sampler, atol 1e-3 m / deg as
+# test_localizer_matches_jax (measured 2.4e-7 and 4.1e-6).
+PROJ = ("nn", "polar")
+
+
+@pytest.mark.parametrize("proj", PROJ)
+def test_proj_options_serve_like_jax(proj):
+    from highlyaccurate_tpu.inference import Localizer as JLocalizer
     from highlyaccurate_tpu_torch.inference import Localizer
-    name = next(iter(opt))
-    with pytest.raises(NotImplementedError, match=name):
-        Localizer(Config(**TINY, **opt), random_init=True, device="cpu",
-                  camera_k=K)
+
+    kw = dict(TINY, N_iters=1, proj=proj)
+    assert not any(projline_slots(Config(**kw)).values())
+    params = _params(14)
+    sat, grd = _images(15, n=3)
+    want = JLocalizer(JConfig(use_banded_warp=2, **kw), params=params,
+                      batch_size=2, camera_k=K).predict(sat, grd)
+    loc = Localizer(Config(**kw), params=params, batch_size=2, device="cpu",
+                    camera_k=K)
+    assert loc.model.GrdFeatureNet.g2s_rearrange == (proj == "nn")
+    got = loc.predict(sat, grd)
+    keys = ("lateral_m", "longitudinal_m", "heading_deg")
+    g = np.stack([got[k] for k in keys], -1)
+    w = np.stack([want[k] for k in keys], -1)
+    assert np.abs(w).max() > 1e-2, "the pose never moved"
+    print(proj, "max |port - JAX|:", np.abs(g - w).max())
+    np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
 
 
 def test_g2sp_refusals_and_errors():
