@@ -147,13 +147,26 @@ Builds the hand-written kernels from the sources in the checkout, then:
    then one CLI epoch of G2SP ``--proj nn`` and of Ford ``--estimate_depth
    1``, each reloaded with ``--test 1`` at float32, bit for bit.
 
+15. corr_heads: the correlation heads, S2GP ``orien_corr`` and G2SP
+   ``corr``, at the flagship widths, batch 2, random weights
+   (``phase_corr_heads``): the card against its CPU twin, the test-mode
+   estimates equal, the train loss within ``CORR_LOSS_TOL`` and each
+   feature network's gradient within ``CORR_GRAD_TOL`` (each below the
+   card's TF32 readings); no K1-K6 launch.
+16. data_parallel: a world-1 NCCL group (``phase_data_parallel``): the
+   S2GP flagship train step at batch 8 through ``make_train_step(...,
+   mesh=)`` and ``Localizer(mesh=)``, each bit for bit against its plain
+   path, with their K2 / K3 and K1 launches; with two cards a world of 2
+   NCCL processes (``--dp-worker``), else a line that it did not run.
+
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
 second checkout in DIR (the parent commit) and of this one in turns, and
 ``--ab-e2e DIR`` the S2GP serving and training cells (``ab_turns``);
 ``--serving-api`` runs the kernels' build and phase 12 alone,
 ``--solver-options [NAME ...]`` phase 13 (or the configurations named, as
 in ``SOLVER_OPTIONS``), ``--proj-options [NAME ...]`` phase 14 (names as
-in ``PROJ_OPTIONS``).
+in ``PROJ_OPTIONS``), ``--corr-heads`` phase 15 and ``--data-parallel``
+phase 16.
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -3275,6 +3288,410 @@ def phase_proj_options(torch, dev, only=None):
               seconds=time.perf_counter() - t_phase))
 
 
+# the correlation heads, card vs the CPU twin at batch 2 (see PERF.md
+# section 6): limits on the train loss (relative error), each feature
+# network's gradient (relL2) and the estimate's surface (max abs), each
+# set from the readings; the gradients' and the surface's sit below the
+# card's readings with TF32 convolutions, the loss's cannot (TF32 moves
+# the loss no further than the float32 algorithms do)
+CORR_LOSS_TOL = 5e-6
+CORR_GRAD_TOL = 2e-2
+CORR_SURFACE_TOL = 6e-6
+# name: (family, head, seed of the weights and images)
+CORR_HEADS = {"S2GP orien_corr": ("S2GP", "orien_corr", 11),
+              "G2SP corr": ("G2SP", "corr", 12)}
+CORR_BATCH = 2
+
+
+def corr_head_run(torch, model, head, sat, grd, extra, gt):
+    """One head on one device: the test-mode estimate and its argmin
+    surface (recorded from the head's ``torch.argmin`` calls: the last is
+    the estimate's), then the train-mode loss and each feature network's
+    gradient (flattened), with the seconds of each call."""
+    from unittest import mock
+    fn = getattr(model, head)
+    surfaces = []
+    argmin = torch.argmin
+
+    def recording(x, *a, **kw):
+        surfaces.append(x.detach())
+        return argmin(x, *a, **kw)
+
+    def sync():
+        if sat.is_cuda:
+            torch.cuda.synchronize()
+
+    with torch.no_grad(), mock.patch.object(torch, "argmin", recording):
+        t0 = time.perf_counter()
+        est = fn(sat, grd, *extra, mode="test")
+        sync()
+        test_s = time.perf_counter() - t0
+    model.zero_grad(set_to_none=True)
+    t0 = time.perf_counter()
+    loss = fn(sat, grd, *extra, gt, mode="train")
+    loss.backward()
+    sync()
+    train_s = time.perf_counter() - t0
+    grads = {br: torch.cat([p.grad.flatten() for p in getattr(
+        model, br).parameters() if p.grad is not None]).cpu()
+        for br in ("SatFeatureNet", "GrdFeatureNet")}
+    return dict(est=[e.cpu() for e in (est if isinstance(est, tuple)
+                                       else (est,))],
+                surface=surfaces[-1].cpu(), loss=float(loss.detach()),
+                grads=grads, test_s=test_s, train_s=train_s)
+
+
+def corr_readings(card, cpu):
+    """The train loss's relative error and each branch's gradient relL2
+    of ``card`` against ``cpu``."""
+    return dict(loss_rel_err=abs(card["loss"] - cpu["loss"])
+                / abs(cpu["loss"]),
+                **{f"{br}_grad_rel_l2": rel_l2(card["grads"][br], g)
+                   for br, g in cpu["grads"].items()})
+
+
+def corr_ties(torch, card, cpu):
+    """The estimate's surfaces [B, N] of the card and the CPU twin: the
+    largest difference on them, whether the argmins are equal, and per
+    sample the CPU surface's gap between the two argmins.  Where they
+    differ, the sample is a tie at the measured precision when that gap
+    is no more than twice the largest difference (each surface then
+    ranks the other's cell within its own error)."""
+    delta = float((card - cpu).abs().max())
+    i_card, i_cpu = card.argmin(-1), cpu.argmin(-1)
+    rows = torch.arange(cpu.shape[0])
+    gap = cpu[rows, i_card] - cpu[rows, i_cpu]
+    two = cpu.topk(2, dim=-1, largest=False).values
+    return dict(argmin_equal=bool(torch.equal(i_card, i_cpu)),
+                argmin_card=i_card.tolist(), argmin_cpu=i_cpu.tolist(),
+                surface_max_abs_delta=delta,
+                cpu_gap_between_argmins=gap.tolist(),
+                surface_min_gap_two_smallest=float((two[:, 1]
+                                                    - two[:, 0]).min()),
+                ties_within_delta=bool((gap <= 2 * delta).all()))
+
+
+def phase_corr_heads(torch, dev):
+    """The two correlation heads (S2GP ``orien_corr``, G2SP ``corr``) at
+    the flagship widths (``Config()``: sat 512, grd 256x1024, level 3),
+    batch 2, random weights, TF32 off, each on the card and on its CPU
+    twin with the same weights and images: the test-mode estimates equal
+    (beside the smallest gap between the two smallest cells of the
+    estimate's surface and the largest card-vs-CPU difference on it, the
+    margin a near-tie would part by), the train loss within
+    ``CORR_LOSS_TOL``, each feature network's gradient within
+    ``CORR_GRAD_TOL`` and the estimate's surface within
+    ``CORR_SURFACE_TOL`` (the last two below the card's readings with
+    TF32 convolutions); an estimate that parts from the CPU's must be a
+    tie at the measured precision (``corr_ties``); no K1-K6 launch.  Prints one JSON line per head and the
+    phase's seconds."""
+    from highlyaccurate_tpu_torch.params import init_params
+    t_phase = time.perf_counter()
+    for name, (family, head, seed) in CORR_HEADS.items():
+        t0 = time.perf_counter()
+        cfg, cls, _, extras, _ = serving_family(torch, dev, family)
+        model = cls(cfg, device=dev)
+        init_params(model, torch.Generator().manual_seed(seed))
+        cpu = cpu_twin(cls, model)
+        sat, grd = serve_images(cfg, seed, CORR_BATCH)
+        gt = np.random.RandomState(seed).uniform(
+            -1, 1, (CORR_BATCH, 3)).astype(np.float32)
+
+        def inputs(d):
+            return ([torch.from_numpy(a.astype(np.float32) / 255.0).to(d)
+                     for a in (sat, grd)],
+                    [e.to(d) for e in extras(CORR_BATCH, d)],
+                    torch.from_numpy(gt).to(d))
+
+        (s_c, g_c), ext_c, gt_c = inputs(dev)
+        with torch.no_grad():   # first launches and cuDNN's choices
+            getattr(model, head)(s_c, g_c, *ext_c, mode="test")
+        reset_launches()
+        card = corr_head_run(torch, model, head, s_c, g_c, ext_c, gt_c)
+        torch.cuda.synchronize()
+        expect_launches(f"corr_heads {name}", {})
+        (s_h, g_h), ext_h, gt_h = inputs("cpu")
+        ref = corr_head_run(torch, cpu, head, s_h, g_h, ext_h, gt_h)
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = corr_head_run(torch, model, head, s_c, g_c, ext_c, gt_c)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+            torch.backends.cuda.matmul.allow_tf32 = False
+        row = dict(
+            phase="corr_heads", config=name, head=head, batch=CORR_BATCH,
+            widths="sat 512, grd 256x1024, level 3, fp32 features, TF32 off",
+            estimate_card=[e.tolist() for e in card["est"]],
+            estimate_cpu=[e.tolist() for e in ref["est"]],
+            card=corr_readings(card, ref), card_tf32=corr_readings(tf32, ref),
+            limits=dict(loss_rel_err=CORR_LOSS_TOL, grad_rel_l2=CORR_GRAD_TOL,
+                        surface_max_abs_delta=CORR_SURFACE_TOL),
+            loss_card=card["loss"], loss_cpu=ref["loss"],
+            test_ms_card=card["test_s"] * 1e3,
+            train_ms_card=card["train_s"] * 1e3,
+            test_ms_cpu=ref["test_s"] * 1e3,
+            train_ms_cpu=ref["train_s"] * 1e3,
+            seconds=time.perf_counter() - t0)
+        ties = corr_ties(torch, card["surface"], ref["surface"])
+        ties["surface_max_abs_delta_tf32"] = float(
+            (tf32["surface"] - ref["surface"]).abs().max())
+        row.update(ties)
+        emit(row)
+        if not (ties["argmin_equal"] or ties["ties_within_delta"]):
+            fail(f"corr_heads {name}: the card's estimate differs from the "
+                 "CPU twin's beyond a tie")
+        gated = dict(row["card"], surface_max_abs_delta=ties[
+            "surface_max_abs_delta"])
+        tf32_read = dict(row["card_tf32"], surface_max_abs_delta=ties[
+            "surface_max_abs_delta_tf32"])
+        for key, got in gated.items():
+            limit = (CORR_LOSS_TOL if key == "loss_rel_err" else
+                     CORR_SURFACE_TOL if key.startswith("surface")
+                     else CORR_GRAD_TOL)
+            if not got <= limit or (key != "loss_rel_err"
+                                    and not limit < tf32_read[key]):
+                fail(f"corr_heads {name}: {key} {got} (TF32 "
+                     f"{tf32_read[key]}) against the limit {limit}")
+        del model, cpu
+        torch.cuda.empty_cache()
+    emit(dict(phase="corr_heads_total",
+              seconds=time.perf_counter() - t_phase))
+
+
+DP_IMAGES = 16   # the Localizer check: two batches of 8
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dp_step(torch, dev, mesh, seed=1, rows=None, shard=None):
+    """One S2GP flagship training step at batch 8 on seeded images and gt
+    (``make_train_step(model, cfg, mesh)``; with a mesh on this process's
+    rows of the batch; without one on ``rows`` of it, drawing as shard
+    ``shard`` = (shards, index) of the batch, ``ShardDraws``): the loss,
+    every gradient, the weights and Adam's moments after the step (host
+    tensors), and the kernels' launch counts of the step."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
+    from highlyaccurate_tpu_torch.params import init_params
+    from highlyaccurate_tpu_torch.solver.updates import ShardDraws
+    from highlyaccurate_tpu_torch.train import step as step_lib
+    from highlyaccurate_tpu_torch.train.state import create_train_state
+
+    cfg = Config()
+    model = LMS2GP(cfg, device=dev)
+    init_params(model, torch.Generator().manual_seed(0))
+    state = create_train_state(cfg, model)
+    step = step_lib.make_train_step(model, cfg, mesh)
+    rng = np.random.RandomState(seed)
+    batch = [(rng.rand(BATCH, cfg.sat_size, cfg.sat_size, 3) * 255).astype(
+        np.uint8).astype(np.float32) / 255.0,
+        (rng.rand(BATCH, cfg.grd_h, cfg.grd_w, 3) * 255).astype(
+        np.uint8).astype(np.float32) / 255.0,
+        rng.uniform(-1, 1, (BATCH, 3)).astype(np.float32)]
+    batch = (step_lib.shard_batch(mesh, batch) if mesh is not None
+             else [step_lib.to_device(x[rows or slice(None)], dev)
+                   for x in batch])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    if shard is not None:
+        gen = ShardDraws(gen, *shard)
+    reset_launches()
+    state, metrics = step(state, *batch, gen)
+    torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in _counters().items()}
+    opt = state.optimizer
+    out = dict(loss=metrics["loss"].cpu(), counts=counts, grads={},
+               weights={}, adam={})
+    for k, p in model.named_parameters():
+        if p.grad is not None:
+            out["grads"][k] = p.grad.cpu()
+        out["weights"][k] = p.detach().cpu()
+        for m, t in opt.state.get(p, {}).items():
+            out["adam"][f"{k}.{m}"] = t.cpu()
+    return out
+
+
+def bits_equal(torch, a, b):
+    """Whether two dicts of tensors hold the same keys and bits."""
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def dp_localizer(torch, dev, mesh):
+    """``Localizer(mesh=mesh)`` against ``mesh=None`` on the same seed and
+    ``DP_IMAGES`` images at batch 8, bit for bit; K1 counted over the mesh
+    predict."""
+    from highlyaccurate_tpu_torch import Config
+    from highlyaccurate_tpu_torch.inference import Localizer
+    cfg = Config()
+    sat, grd = serve_images(cfg, 0, DP_IMAGES)
+    outs, row = {}, {}
+    for name, m in (("plain", None), ("mesh", mesh)):
+        loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0,
+                        device=dev, mesh=m)
+        reset_launches()
+        t0 = time.perf_counter()
+        outs[name] = loc.predict(sat, grd)
+        row[f"{name}_seconds"] = time.perf_counter() - t0
+        counts = expect_launches(f"data_parallel Localizer {name}",
+                                 {"k1": 15 * DP_IMAGES // BATCH})
+        del loc
+    row["k1_launches_mesh"] = counts["k1"]
+    row["bit_equal"] = all(np.array_equal(outs["mesh"][k], v)
+                           for k, v in outs["plain"].items())
+    return row
+
+
+def dp_two_cards(torch):
+    """With two cards or more: a world of 2 NCCL processes (``chip_smoke.py
+    --dp-worker``), each on its card and its 4 rows of the batch of 8; the
+    two ranks' states must be bit-identical, and their loss and gradients
+    within the CPU test's limits (1e-6 relative, relL2 1e-4) of one
+    process's steps on the two halves, averaged (the same convolutions at
+    batch 4 and the same draws: what the all-reduce must reproduce).  One
+    process's step on the whole batch is read beside it, not gated: cuDNN
+    takes other convolution algorithms at batch 8 than at 4, which the
+    rounds amplify on random weights (PERF.md section 6).  With fewer
+    cards, a line saying the check did not run."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        print(f"data_parallel: the two-card check did not run: {n} card "
+              "visible", flush=True)
+        return dict(ran=False, cards=n)
+    root = os.path.abspath("build/data_parallel")
+    os.makedirs(root, exist_ok=True)
+    port = str(free_port())
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-worker", str(r),
+         "2", port, root], env=dict(os.environ, LOCAL_RANK=str(r)))
+        for r in range(2)]
+    try:
+        codes = [p.wait(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(codes):
+        fail(f"data_parallel: a two-card worker exited {codes}")
+    r0, r1, halves, whole = (torch.load(os.path.join(root, f"{k}.pt"))
+                             for k in ("rank0", "rank1", "halves", "single"))
+
+    def against(ref):
+        names = list(ref["grads"])
+        return dict(
+            loss_rel_err=float(abs(r0["loss"] - ref["loss"])
+                               / abs(ref["loss"])),
+            grad_rel_l2=rel_l2(
+                torch.cat([r0["grads"][k].flatten() for k in names]),
+                torch.cat([ref["grads"][k].flatten() for k in names])))
+
+    row = dict(ran=True, cards=n,
+               ranks_bit_identical=all(
+                   bits_equal(torch, r0[k], r1[k])
+                   for k in ("grads", "weights", "adam"))
+               and torch.equal(r0["loss"], r1["loss"]),
+               vs_halves=against(halves), vs_whole_batch=against(whole))
+    if not (row["ranks_bit_identical"]
+            and row["vs_halves"]["loss_rel_err"] <= 1e-6
+            and row["vs_halves"]["grad_rel_l2"] <= 1e-4):
+        fail(f"data_parallel two cards: {row}")
+    return row
+
+
+def dp_worker(rank, world, port, root):
+    """``chip_smoke.py --dp-worker RANK WORLD PORT DIR``: one process of
+    ``dp_two_cards``, on card ``rank``; rank 0 also takes the steps of one
+    process on the whole batch and on each rank's rows (drawing as that
+    rank), averaged."""
+    import torch
+    import torch.distributed as dist
+    from highlyaccurate_tpu_torch.ops import _build
+    from highlyaccurate_tpu_torch.train import distributed
+    from highlyaccurate_tpu_torch.train import step as step_lib
+    _build.build()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    dev = distributed.local_device()
+    distributed.initialize(f"localhost:{port}", world, rank)
+    try:
+        mesh = step_lib.make_mesh()
+        keep = ("loss", "grads", "weights", "adam")
+        out = dp_step(torch, dev, mesh)
+        torch.save({k: out[k] for k in keep},
+                   os.path.join(root, f"rank{rank}.pt"))
+        if rank == 0:
+            out = dp_step(torch, dev, None)
+            torch.save({k: out[k] for k in keep},
+                       os.path.join(root, "single.pt"))
+            half = BATCH // world
+            parts = [dp_step(torch, dev, None, rows=slice(i * half,
+                                                          (i + 1) * half),
+                             shard=(world, i)) for i in range(world)]
+            torch.save(dict(loss=sum(p["loss"] for p in parts) / world,
+                            grads={k: sum(p["grads"][k] for p in parts)
+                                   / world for k in parts[0]["grads"]}),
+                       os.path.join(root, "halves.pt"))
+        distributed.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_data_parallel(torch, dev):
+    """Data parallelism on the card: a ``torch.distributed`` NCCL group of
+    this process alone (world 1); one S2GP flagship training step at batch
+    8 through ``make_train_step(..., mesh=)`` held bit for bit to the plain
+    step (the loss, every gradient, the weights and Adam's moments after
+    the step; cuDNN's deterministic algorithms, so the two can repeat),
+    with its K2 and K3 launches; ``Localizer(mesh=make_mesh([cuda:0]))``
+    held bit for bit to ``mesh=None``, with its K1 launches; and, with two
+    cards, a world of 2 (``dp_two_cards``).  Prints one JSON line."""
+    import torch.distributed as dist
+    from highlyaccurate_tpu_torch.train import step as step_lib
+    t0 = time.perf_counter()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = step_lib.make_mesh([dev])
+        if mesh.ranks != (0,) or mesh.size != 1:
+            fail(f"data_parallel: a world-1 mesh came out as {mesh}")
+        with deterministic_cudnn(torch):
+            plain = dp_step(torch, dev, None)
+            meshed = dp_step(torch, dev, mesh)
+        train = dict(
+            loss=float(meshed["loss"]),
+            bit_equal={k: bits_equal(torch, plain[k], meshed[k])
+                       for k in ("grads", "weights", "adam")},
+            loss_bit_equal=bool(torch.equal(plain["loss"], meshed["loss"])),
+            launches_mesh=meshed["counts"], launches_plain=plain["counts"])
+        del plain, meshed
+        torch.cuda.empty_cache()
+        row = dict(phase="data_parallel", backend=dist.get_backend(),
+                   world=dist.get_world_size(), config="KITTI S2GP geo LM, "
+                   "sat 512, grd 256x1024, level 3, N_iters 5, batch 8",
+                   train_step=train, localizer=dp_localizer(torch, dev, mesh),
+                   two_cards=dp_two_cards(torch),
+                   seconds=time.perf_counter() - t0)
+    finally:
+        dist.destroy_process_group()
+    emit(row)
+    want = {"k2": 15, "k3": 15}
+    for name in ("launches_mesh", "launches_plain"):
+        got = {k: v for k, v in train[name].items() if v}
+        if got != want:
+            fail(f"data_parallel: the train step launched {got}, expected "
+                 f"{want}")
+    if not (train["loss_bit_equal"] and all(train["bit_equal"].values())
+            and row["localizer"]["bit_equal"]):
+        fail("data_parallel: the mesh path is not bit for bit the plain one")
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -3401,6 +3818,10 @@ def main():
     phase_solver_options(torch, dev)
     torch.cuda.empty_cache()
     phase_proj_options(torch, dev)
+    torch.cuda.empty_cache()
+    phase_corr_heads(torch, dev)
+    torch.cuda.empty_cache()
+    phase_data_parallel(torch, dev)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes
@@ -3487,8 +3908,8 @@ def ab_turns(flag, parent):
 
 def phase_alone(phase, *args):
     """``python3 chip_smoke.py --serving-api``, ``--solver-options [NAME
-    ...]`` or ``--proj-options [NAME ...]``: the kernels' build and that
-    phase alone."""
+    ...]``, ``--proj-options [NAME ...]``, ``--corr-heads`` or
+    ``--data-parallel``: the kernels' build and that phase alone."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3509,5 +3930,12 @@ if __name__ == "__main__":
         phase_alone(phase_solver_options, sys.argv[2:])
     elif sys.argv[1:2] == ["--proj-options"]:
         phase_alone(phase_proj_options, sys.argv[2:])
+    elif sys.argv[1:] == ["--corr-heads"]:
+        phase_alone(phase_corr_heads)
+    elif sys.argv[1:] == ["--data-parallel"]:
+        phase_alone(phase_data_parallel)
+    elif sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 6:
+        dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
+                  sys.argv[5])
     else:
         main()

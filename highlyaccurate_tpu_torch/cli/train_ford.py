@@ -27,11 +27,16 @@ SGD or NN (ADAM raises ``ValueError``, as in JAX), ``--using_weight``,
 ``--proj`` polar or nn (no sky crop, the gather sampler), ``--estimate_depth
 1`` (the depth heads and the lifted rays; save path suffix ``_Depth1``)
 and ``--use_gt_depth 1`` (which the Ford model never reads, as in JAX).
+Several cards: one process each under ``torchrun``, as the KITTI driver
+(JAX cli/train_ford.py:187-202): training on the processes that divide
+``--batch_size``, evaluation padded over all of them, rank 0 alone
+printing and writing.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -41,7 +46,7 @@ import torch
 from highlyaccurate_tpu_torch.cli.train_kitti import generator, init_model
 from highlyaccurate_tpu_torch.config import Config, config_from_args
 from highlyaccurate_tpu_torch.eval.metrics import (EvalResults, denormalize,
-                                                   write_ford)
+                                                   ford_rank, write_ford)
 
 
 def parse_args(argv=None):
@@ -179,10 +184,11 @@ def make_loader(cfg: Config, args, split: str):
     return ds, loader
 
 
-def _host_rig(batch, n=None):
-    """A batch's R_FL and T_FL as host tensors: the model reads its kernel
-    layout from R_FL on the host and moves the rig to its device."""
-    return tuple(torch.from_numpy(np.ascontiguousarray(batch[k][:n]))
+def _host_rig(batch, rows=slice(None)):
+    """A batch's R_FL and T_FL (its ``rows``) as host tensors: the model
+    reads its kernel layout from R_FL on the host and moves the rig to its
+    device."""
+    return tuple(torch.from_numpy(np.ascontiguousarray(batch[k][rows]))
                  for k in ("R_FL", "T_FL"))
 
 
@@ -198,7 +204,7 @@ def _visualize_batch(model, cfg: Config, batch, side_m, gen, traj_name: str,
     dev = model.device
     sat1 = to_device(batch["sat"][:1], dev)
     grd1 = to_device(batch["grd"][:1], dev)
-    rig1 = _host_rig(batch, 1)
+    rig1 = _host_rig(batch, slice(1))
     with torch.no_grad():
         lats, lons, ths = (t.cpu().numpy() for t in model(
             sat1, grd1, side_m, *rig1, mode="trajectory", generator=gen))
@@ -221,13 +227,15 @@ def _visualize_batch(model, cfg: Config, batch, side_m, gen, traj_name: str,
 
 
 def evaluate(model, cfg: Config, args, save_path: str, epoch: int,
-             best_rank: float, eval_step=None, side_m=None):
+             best_rank: float, eval_step=None, side_m=None, mesh=None):
     """The reference's test protocol on test log ``--test_log_ind``
     (train_ford.py:39-186) with the model's current weights.  One warm-up
     batch runs before the clock; ``time_per_image`` is taken after the
     device has finished.  Writes the per-log results (``write_ford``) and,
-    when the rank improves on ``best_rank``, ``Model_best``.  Returns the
-    rank."""
+    when the rank improves on ``best_rank``, ``Model_best`` (rank 0).
+    Returns the rank.  With a ``mesh`` (and its ``eval_step``), as the
+    KITTI CLI's ``evaluate``: padded batches over every process."""
+    from highlyaccurate_tpu_torch.train import distributed
     from highlyaccurate_tpu_torch.train import step as step_lib
     from highlyaccurate_tpu_torch.train.checkpoint import save_params
 
@@ -237,11 +245,23 @@ def evaluate(model, cfg: Config, args, save_path: str, epoch: int,
     if side_m is None:
         side_m = ds.satmap_sidelength_meters
     if eval_step is None:
-        eval_step = step_lib.make_eval_step(model, cfg, ford_side_m=side_m)
+        eval_step = step_lib.make_eval_step(model, cfg, mesh,
+                                            ford_side_m=side_m)
+    elif mesh is not None:
+        step_lib.replicate(mesh, model)   # rank 0's weights everywhere
+    padded_bs = step_lib.eval_batch_pad(cfg.batch_size, mesh)
 
     def prep(batch):
         # async H2D copies; through device_prefetch batch i+1's copy
         # overlaps batch i's inference
+        if mesh is not None:
+            batch = dict(batch)
+            batch.update((k, step_lib.pad_rows(batch[k], padded_bs))
+                         for k in ("sat", "grd", "R_FL", "T_FL"))
+            return batch, (*step_lib.shard_batch(
+                mesh, [batch["sat"], batch["grd"]]),
+                *_host_rig(batch, step_lib.process_rows(
+                    mesh, padded_bs)))
         return batch, (step_lib.to_device(batch["sat"], dev),
                        step_lib.to_device(batch["grd"], dev),
                        *_host_rig(batch))
@@ -265,11 +285,12 @@ def evaluate(model, cfg: Config, args, save_path: str, epoch: int,
     n_images = 0
     for i, placed in enumerate(step_lib.device_prefetch(loader, prep)):
         batch, (u, v, th) = run_batch(placed, i)
-        pu.append(u.cpu().numpy())
-        pv.append(v.cpu().numpy())
-        pt.append(th.cpu().numpy())
+        n = batch["gt_pose"].shape[0]
+        pu.append(u[:n].cpu().numpy())
+        pv.append(v[:n].cpu().numpy())
+        pt.append(th[:n].cpu().numpy())
         gts.append(batch["gt_pose"])
-        n_images += batch["sat"].shape[0]
+        n_images += n
         if i % 20 == 0:
             print(i)
     if dev.type == "cuda":
@@ -286,14 +307,19 @@ def evaluate(model, cfg: Config, args, save_path: str, epoch: int,
                                          cfg.rotation_range)
     res = EvalResults(pred_shifts, pred_headings, gt_shifts, gt_headings,
                       time_per_image=duration)
-    rank = write_ford(res, save_path, args.test_log_ind, epoch)
+    main = distributed.rank() == 0
+    rank = (write_ford(res, save_path, args.test_log_ind, epoch) if main
+            else ford_rank(res))
     if rank > best_rank:
-        save_params(save_path, "Model_best", model,
-                    async_save=bool(cfg.async_ckpt))
+        if main:
+            save_params(save_path, "Model_best", model,
+                        async_save=bool(cfg.async_ckpt))
+        distributed.barrier("Model_best")
     return rank
 
 
 def train(model, cfg: Config, args, save_path: str, restore_path=None):
+    from highlyaccurate_tpu_torch.train import distributed
     from highlyaccurate_tpu_torch.train import step as step_lib
     from highlyaccurate_tpu_torch.train.checkpoint import (
         apply_vgg16_init, epoch_ckpt_name, load_params, load_train_state,
@@ -331,12 +357,26 @@ def train(model, cfg: Config, args, save_path: str, restore_path=None):
             print("resumed optimizer state")
         except FileNotFoundError:
             print("no full-state checkpoint; resuming params only")
-    train_step = step_lib.make_train_step(model, cfg, ford_side_m=side_m,
+    # several processes: train on those that divide the batch, evaluate
+    # on all of them (JAX cli/train_ford.py:187-202)
+    mesh = eval_mesh = None
+    if distributed.world_size() > 1:
+        mesh = step_lib.make_mesh_for_batch(cfg.batch_size, [dev])
+        eval_mesh = step_lib.make_mesh([dev])
+    training = mesh is None or mesh.index >= 0
+    train_step = step_lib.make_train_step(model, cfg, mesh,
+                                          ford_side_m=side_m,
                                           freeze_backbones=freeze)
-    eval_step = step_lib.make_eval_step(model, cfg, ford_side_m=side_m)
+    eval_step = step_lib.make_eval_step(model, cfg, eval_mesh,
+                                        ford_side_m=side_m)
 
     def place(batch):
         # async H2D copies of the images and gt; the rig stays on the host
+        if mesh is not None:
+            rows = step_lib.process_rows(mesh, batch["sat"].shape[0])
+            sat, grd, gt = step_lib.shard_batch(
+                mesh, [batch["sat"], batch["grd"], batch["gt_pose"]])
+            return batch, (sat, grd, *_host_rig(batch, rows), gt)
         return batch, (step_lib.to_device(batch["sat"], dev),
                        step_lib.to_device(batch["grd"], dev),
                        *_host_rig(batch),
@@ -348,7 +388,7 @@ def train(model, cfg: Config, args, save_path: str, restore_path=None):
     for epoch in range(args.resume, cfg.epochs):
         state = reset_for_epoch(state, cfg, epoch)
         for loop, (batch, b) in enumerate(
-                step_lib.device_prefetch(loader, place)):
+                step_lib.device_prefetch(loader if training else [], place)):
             gen = generator(dev, args.seed, epoch * 100000 + loop)
             # trace of steps 2-4 (steps 0 and 1 carry the first launches)
             if args.profile_dir and epoch == args.resume and loop == 2:
@@ -377,22 +417,35 @@ def train(model, cfg: Config, args, save_path: str, restore_path=None):
             print(f"profiler trace written to {args.profile_dir} "
                   "(short epoch: fewer than 5 batches)")
         print("taking snapshot ...")
-        save_params(save_path, epoch_ckpt_name(epoch), model,
-                    async_save=bool(cfg.async_ckpt))
-        if cfg.keep_optimizer_state:
-            save_train_state(save_path, epoch_ckpt_name(epoch), state, model,
-                             async_save=bool(cfg.async_ckpt))
+        if distributed.rank() == 0:
+            save_params(save_path, epoch_ckpt_name(epoch), model,
+                        async_save=bool(cfg.async_ckpt))
+            if cfg.keep_optimizer_state:
+                save_train_state(save_path, epoch_ckpt_name(epoch), state,
+                                 model, async_save=bool(cfg.async_ckpt))
+        distributed.barrier("snapshot")
         best_rank = max(best_rank, evaluate(model, cfg, args, save_path,
                                             epoch, best_rank, eval_step,
-                                            side_m))
+                                            side_m, eval_mesh))
     wait_for_async_saves()
     print("Finished Training")
 
 
 def main(argv=None):
-    from highlyaccurate_tpu_torch.utils.device import resolve_device
+    from highlyaccurate_tpu_torch.train import distributed
 
     args = parse_args(argv)
+    distributed.initialize(device=args.device)
+    if distributed.rank() > 0:   # rank 0 alone prints
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return _main(args)
+    return _main(args)
+
+
+def _main(args):
+    from highlyaccurate_tpu_torch.train import distributed
+    from highlyaccurate_tpu_torch.utils.device import resolve_device
+
     np.random.seed(args.seed)
     if args.use_banded_warp is None and args.test and args.import_pth:
         # the resolution itself lives in config_from_args; just surface it
@@ -400,7 +453,9 @@ def main(argv=None):
               "gather sampler (--use_banded_warp 0); pass "
               "--use_banded_warp 1 to opt into the banded kernel")
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
+    device = (distributed.local_device(args.device)
+              if distributed.world_size() > 1
+              else resolve_device(args.device))
     restore_path, save_path = cfg.ford_paths(args.save_root)
     os.makedirs(save_path, exist_ok=True)
     print("save_path:", save_path)

@@ -29,11 +29,21 @@ path suffixes ``_polar``, ``_nn`` and ``_depth``.
 
 Quirks kept on purpose: Adam is re-created every epoch with a poly-decayed
 lr; ``--test 1`` loads ``model_1`` as the reference loads ``model_1.pth``.
+
+Several cards: one process each, under ``torchrun --nproc_per_node N``
+(NCCL; with ``--device cpu``, gloo processes).  Training runs on a mesh
+of the processes that divide ``--batch_size`` (``make_mesh_for_batch``),
+each on its rows of every batch, gradients averaged before Adam;
+evaluation pads every batch to a multiple of all the processes and gathers
+the outputs (the pad rows are trimmed).  Rank 0 alone prints, writes the
+checkpoints and the results, and every process waits for each save
+(``barrier``).  One process runs exactly as without ``torchrun``.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import time
 
@@ -203,25 +213,36 @@ def _visualize_batch(model, cfg: Config, batch, gen, traj_name: str,
 
 
 def evaluate(model, cfg: Config, args, split: str, save_path: str,
-             epoch: int, best_rank: float, eval_step=None):
+             epoch: int, best_rank: float, eval_step=None, mesh=None):
     """Reference test1/test2 protocol (train_kitti.py:34-172) on the
     model's current weights.  One warm-up batch runs before the clock (the
     reference measures steady-state inference, train_kitti.py:74-75);
     ``time_per_image`` is taken after the device has finished.  Writes the
-    results and, when test1's rank improves, ``Model_best``."""
+    results and, when test1's rank improves, ``Model_best`` (rank 0).
+    With a ``mesh`` (and its ``eval_step``) every batch is padded to a
+    multiple of the mesh, each process evaluates its rows on rank 0's
+    weights, and the pad rows are trimmed from the gathered outputs."""
+    from highlyaccurate_tpu_torch.train import distributed
     from highlyaccurate_tpu_torch.train import step as step_lib
     from highlyaccurate_tpu_torch.train.checkpoint import save_params
 
     dev = model.device
     loader = make_loaders(cfg, args, split)
     if eval_step is None:
-        eval_step = step_lib.make_eval_step(model, cfg)
+        eval_step = step_lib.make_eval_step(model, cfg, mesh)
+    elif mesh is not None:
+        step_lib.replicate(mesh, model)   # rank 0's weights everywhere
     keys = ["sat", "grd"] + (["camera_k"] if cfg.direction == "G2SP" else [])
+    padded_bs = step_lib.eval_batch_pad(cfg.batch_size, mesh)
 
     def prep(batch):
         # async H2D copies; through device_prefetch batch i+1's copy
         # overlaps batch i's inference
-        return batch, tuple(step_lib.to_device(batch[k], dev) for k in keys)
+        if mesh is None:
+            return batch, tuple(step_lib.to_device(batch[k], dev)
+                                for k in keys)
+        return batch, tuple(step_lib.shard_batch(mesh, [
+            step_lib.pad_rows(batch[k], padded_bs) for k in keys]))
 
     def run_batch(placed, i):
         batch, args_dev = placed
@@ -242,11 +263,12 @@ def evaluate(model, cfg: Config, args, split: str, save_path: str,
     n_images = 0
     for i, placed in enumerate(step_lib.device_prefetch(loader, prep)):
         batch, (lat, lon, th) = run_batch(placed, i)
-        preds_lat.append(lat.cpu().numpy())
-        preds_lon.append(lon.cpu().numpy())
-        preds_th.append(th.cpu().numpy())
+        n = batch["sat"].shape[0]
+        preds_lat.append(lat[:n].cpu().numpy())
+        preds_lon.append(lon[:n].cpu().numpy())
+        preds_th.append(th[:n].cpu().numpy())
         gts.append(batch["gt_pose"])
-        n_images += batch["sat"].shape[0]
+        n_images += n
         if i % 20 == 0:
             print(i)
     if dev.type == "cuda":
@@ -267,12 +289,16 @@ def evaluate(model, cfg: Config, args, split: str, save_path: str,
                       gt_shifts=gt_shifts, gt_headings=gt_headings,
                       time_per_image=duration)
     m = res.compute()
-    res.write(save_path, split.capitalize(), epoch)
+    main = distributed.rank() == 0
+    if main:
+        res.write(save_path, split.capitalize(), epoch)
 
     rank = m["rank_result"]
     if split == "test1" and rank > best_rank:
-        save_params(save_path, "Model_best", model,
-                    async_save=bool(cfg.async_ckpt))
+        if main:
+            save_params(save_path, "Model_best", model,
+                        async_save=bool(cfg.async_ckpt))
+        distributed.barrier("Model_best")
     return rank
 
 
@@ -292,6 +318,7 @@ def _print_metrics(epoch: int, loop: int, lvl: int, metrics: dict):
 
 
 def train(model, cfg: Config, args, save_path: str):
+    from highlyaccurate_tpu_torch.train import distributed
     from highlyaccurate_tpu_torch.train import step as step_lib
     from highlyaccurate_tpu_torch.train.checkpoint import (
         apply_vgg16_init, epoch_ckpt_name, load_params, load_train_state,
@@ -322,14 +349,24 @@ def train(model, cfg: Config, args, save_path: str):
             print("resumed optimizer state")
         except FileNotFoundError:
             print("no full-state checkpoint; resuming params only")
-    train_step = step_lib.make_train_step(model, cfg)
-    eval_step = step_lib.make_eval_step(model, cfg)
+    # several processes: train on those that divide the batch, evaluate
+    # on all of them (JAX cli/train_kitti.py:298-326)
+    mesh = eval_mesh = None
+    if distributed.world_size() > 1:
+        mesh = step_lib.make_mesh_for_batch(cfg.batch_size, [dev])
+        eval_mesh = step_lib.make_mesh([dev])
+    training = mesh is None or mesh.index >= 0
+    train_step = step_lib.make_train_step(model, cfg, mesh)
+    eval_step = step_lib.make_eval_step(model, cfg, eval_mesh)
     keys = ["sat", "grd"] + (["camera_k"] if cfg.direction == "G2SP"
                              else []) + ["gt_pose"]
 
     def place(batch):
         # async H2D copies; device_prefetch keeps the next batch's copy in
         # flight under the current step
+        if mesh is not None:
+            return batch, step_lib.shard_batch(mesh, [batch[k]
+                                                      for k in keys])
         return batch, [step_lib.to_device(batch[k], dev) for k in keys]
 
     best_rank = 0.0
@@ -339,7 +376,7 @@ def train(model, cfg: Config, args, save_path: str):
         loader = make_loaders(cfg, args, "train")
         print("batch_size:", cfg.batch_size, "num batches:", len(loader))
         for loop, (batch, b) in enumerate(
-                step_lib.device_prefetch(loader, place)):
+                step_lib.device_prefetch(loader if training else [], place)):
             gen = generator(dev, args.seed, epoch * 100000 + loop)
             # trace of steps 2-4 (steps 0 and 1 carry the first launches)
             if args.profile_dir and epoch == args.resume and loop == 2:
@@ -366,24 +403,37 @@ def train(model, cfg: Config, args, save_path: str):
             print(f"profiler trace written to {args.profile_dir} "
                   "(short epoch: fewer than 5 batches)")
         print("taking snapshot ...")
-        save_params(save_path, epoch_ckpt_name(epoch), model,
-                    async_save=bool(cfg.async_ckpt))
-        if cfg.keep_optimizer_state:
-            save_train_state(save_path, epoch_ckpt_name(epoch), state, model,
-                             async_save=bool(cfg.async_ckpt))
+        if distributed.rank() == 0:
+            save_params(save_path, epoch_ckpt_name(epoch), model,
+                        async_save=bool(cfg.async_ckpt))
+            if cfg.keep_optimizer_state:
+                save_train_state(save_path, epoch_ckpt_name(epoch), state,
+                                 model, async_save=bool(cfg.async_ckpt))
+        distributed.barrier("snapshot")
         cur = evaluate(model, cfg, args, "test1", save_path, epoch,
-                       best_rank, eval_step)
+                       best_rank, eval_step, eval_mesh)
         best_rank = max(best_rank, cur)
         evaluate(model, cfg, args, "test2", save_path, epoch, best_rank,
-                 eval_step)
+                 eval_step, eval_mesh)
     wait_for_async_saves()
     print("Finished Training")
 
 
 def main(argv=None):
-    from highlyaccurate_tpu_torch.utils.device import resolve_device
+    from highlyaccurate_tpu_torch.train import distributed
 
     args = parse_args(argv)
+    distributed.initialize(device=args.device)
+    if distributed.rank() > 0:   # rank 0 alone prints
+        with open(os.devnull, "w") as sink, contextlib.redirect_stdout(sink):
+            return _main(args)
+    return _main(args)
+
+
+def _main(args):
+    from highlyaccurate_tpu_torch.train import distributed
+    from highlyaccurate_tpu_torch.utils.device import resolve_device
+
     np.random.seed(args.seed)
     if args.use_banded_warp is None and args.test and args.import_pth:
         # the resolution itself lives in config_from_args; just surface it
@@ -391,7 +441,9 @@ def main(argv=None):
               "gather sampler (--use_banded_warp 0); pass "
               "--use_banded_warp 1 to opt into the banded kernel")
     cfg = config_from_args(args)
-    device = resolve_device(args.device)
+    device = (distributed.local_device(args.device)
+              if distributed.world_size() > 1
+              else resolve_device(args.device))
     save_path = cfg.save_path(args.save_root)
     os.makedirs(save_path, exist_ok=True)
     print("save_path:", save_path)

@@ -176,7 +176,12 @@ def write_ford(res: "EvalResults", save_path: str, test_log_ind: int,
     with open(os.path.join(save_path, f"{test_log_ind}_results.txt"), "a") as f:
         f.write("\n".join(lines) + "\n")
     print("\n".join(lines))
+    return ford_rank(res)
 
+
+def ford_rank(res: "EvalResults") -> float:
+    """The Ford best-model criterion ``write_ford`` returns: the recall (%)
+    of (dist < 5 m) & (angle < 1 deg)."""
     distance = np.sqrt(np.sum((res.pred_shifts - res.gt_shifts) ** 2, axis=1))
     angle_diff = np.remainder(np.abs(res.pred_headings - res.gt_headings), 360)
     angle_diff = np.where(angle_diff > 180, 360 - angle_diff, angle_diff)

@@ -18,7 +18,6 @@ product (and no TF32 mode) is involved on the GPU.
 
 from __future__ import annotations
 
-import functools
 import itertools
 
 import numpy as np
@@ -317,17 +316,17 @@ def g2sp_uv_jac(pose, XYZ1, camera_k, grd_H: int, grd_W: int,
     return uv, duv, mask
 
 
-@functools.lru_cache(maxsize=8)
 def _inplane_consts(A: int, device: torch.device):
-    """``inplane_uv_jac``'s constants on ``device``, made once per (A,
-    device) rather than copied from the host every round: the pixel grid
+    """``inplane_uv_jac``'s constants, made on ``device`` at every call
+    (``arange`` and ``eye`` there, no copy from the host): the pixel grid
     (u, v) centred on the patch [A, A, 2] and the unit vectors of its u
-    and v shifts in uv, (-1, 0) and (0, 1)."""
-    i = np.arange(A, dtype=np.float32)
-    vg, ug = np.meshgrid(i, i, indexing="ij")
-    uv2 = torch.from_numpy(np.stack([ug, vg], axis=-1) - A / 2).to(device)
-    units = torch.tensor([[-1.0, 0.0], [0.0, 1.0]], device=device)
-    return uv2, units[0], units[1]
+    and v shifts in uv, (-1, 0) and (0, 1).  Nothing is kept between calls:
+    a tensor made while ``torch.export`` traces is a FakeTensor, and a
+    cached one would turn a later eager call's outputs fake."""
+    i = torch.arange(A, dtype=torch.float32, device=device) - A / 2
+    vg, ug = torch.meshgrid(i, i, indexing="ij")
+    e_v = torch.eye(2, dtype=torch.float32, device=device)[1]
+    return torch.stack([ug, vg], dim=-1), e_v - 1.0, e_v  # (-1, +0), (0, 1)
 
 
 def inplane_uv_jac(pose, satmap_sidelength: int, rotation_range: float,

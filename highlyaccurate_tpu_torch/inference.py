@@ -37,8 +37,12 @@ This port serves KITTI S2GP and G2SP and Ford LM_S2GP_Ford.  G2SP takes the
 camera intrinsics of the grd_h x grd_w input, per call or as a constructor
 default; Ford takes the camera -> body extrinsics and the satellite patch's
 side length in meters at construction, and per-image extrinsics per call.
-Orbax checkpoints (``save_path=``) raise ``NotImplementedError``; the
-sharded predict (JAX ``mesh=``) is not ported.
+Orbax checkpoints (``save_path=``) raise ``NotImplementedError``.
+
+Several devices: ``mesh=make_mesh([...])`` (``train/step.py``) replicates
+the model on each of this process's devices and splits every padded batch
+over them in order, as the JAX ``mesh=`` shards it over the data axis; the
+outputs are those of one device serving each slice.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ import torch
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry.ford import sample_layouts
 from highlyaccurate_tpu_torch.solver.updates import uniform_draws
+from highlyaccurate_tpu_torch.train.step import eval_batch_pad
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 _EXPORT_FORMAT = "highlyaccurate_tpu_torch.localizer/1"
@@ -75,13 +80,16 @@ class Localizer:
     side length in meters (the Ford data's 0.22 m per pixel times its
     side); the Ford chain is S2GP only.  ``cov_scale`` multiplies the
     covariance ``predict`` returns (``calibrate`` fits it).
-    ``device`` defaults to ``cuda`` and raises without a GPU; pass
-    ``device="cpu"`` to run the plain PyTorch path on the host.
+    ``device`` defaults to ``cuda`` (with a ``mesh``, its first device) and
+    raises without a GPU; pass ``device="cpu"`` to run the plain PyTorch
+    path on the host.  ``mesh``: a ``train.step.Mesh`` of this process's
+    devices; each padded batch (``batch_size`` rounded up to a multiple of
+    the mesh's size) is split over them.
     """
 
     def __init__(self, cfg: Config, params=None, pth_path: Optional[str] = None,
-                 batch_size: int = 8, seed: int = 0, random_init: bool = False,
-                 device=None, save_path: Optional[str] = None,
+                 batch_size: int = 8, mesh=None, seed: int = 0,
+                 random_init: bool = False, device=None, save_path: Optional[str] = None,
                  ford_extrinsics=None, ford_side_m: Optional[float] = None,
                  camera_k=None, cov_scale: float = 1.0):
         from highlyaccurate_tpu_torch.models import ford, lm_g2sp, lm_s2gp
@@ -116,6 +124,12 @@ class Localizer:
                              "pth_path= or random_init=True")
         self.cfg = cfg
         self.batch_size = batch_size
+        self._mesh = mesh
+        if mesh is not None:
+            if mesh.processes > 1:
+                raise ValueError("a Localizer serves from one process: its "
+                                 "mesh holds this process's devices")
+            device = mesh.devices[0] if device is None else device
         self.device = resolve_device(device)
         # the raw GN covariance is optimistic when residuals correlate:
         # cov_scale is the empirical multiplier (calibrate() or a known one)
@@ -148,8 +162,9 @@ class Localizer:
 
         if (warm, info) not in self._steps:
             self._steps[warm, info] = make_eval_step(
-                self.model, self.cfg, ford_side_m=self._ford_side_m,
-                warm_start=warm, with_info=info)
+                self.model, self.cfg, self._mesh,
+                ford_side_m=self._ford_side_m, warm_start=warm,
+                with_info=info)
         return self._steps[warm, info]
 
     def predict(self, sat_imgs, grd_imgs, R_FL=None, T_FL=None,
@@ -207,7 +222,7 @@ class Localizer:
                 args.append(_to_device(eb["_init_pose"], dev))
             return [t.cpu().numpy() for t in step(*args, self._generator)]
 
-        sizes = [self.batch_size]
+        sizes = [eval_batch_pad(self.batch_size, self._mesh)]
         swap = (sample_layouts(extras["R_FL"])
                 if self._ford and not self.model._gather else None)
         if swap is not None and swap.any() != swap.all():
@@ -314,9 +329,14 @@ class Localizer:
         ``return_cov`` the covariance output (scaled by the ``cov_scale``
         stored now).  Ford's banded kernel layout is fixed by the
         constructor's rig; the artifact refuses a rig of the other layout.
+        A program serves one device: a Localizer with a ``mesh`` raises
+        ``ValueError``.
         """
         from highlyaccurate_tpu_torch.train.step import EvalProgram
 
+        if self._mesh is not None:
+            raise ValueError("export serializes a single-device program; "
+                             "build the Localizer with mesh=None")
         cfg = self.cfg
         dev = self.device
         layout = (bool(sample_layouts(self._ford_R[None])[0])

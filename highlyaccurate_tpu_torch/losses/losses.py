@@ -8,6 +8,8 @@ projected feature maps of every round, which the models collect on the
 gather sampler.
 
 Trajectories are [B, N_iters, L] tensors in normalized units.
+``soft_margin_triplet`` (JAX ``losses.py:167-180``) is the G2SP ``corr``
+head's loss.
 """
 
 from __future__ import annotations
@@ -146,3 +148,26 @@ def loss_func(loss_method: int, shift_lats, shift_lons, thetas,
                                + L4.sum(), L1=L1, L2=L2, L3=L3, L4=L4,
                                **base)
     raise ValueError(f"unknown loss_method {loss_method}")
+
+
+def clamped_index(i, n: int) -> torch.Tensor:
+    """Integer indices as a JAX gather takes them: a negative index counts
+    from the end, and an index out of range clamps to the nearest end."""
+    i = i.to(torch.int64)
+    return torch.where(i < 0, i + n, i).clamp(0, n - 1)
+
+
+def soft_margin_triplet(corr, gt_u_px, gt_v_px) -> torch.Tensor:
+    """Soft-margin triplet loss over a dense correlation map (port of JAX
+    ``losses.py:167-180``; reference models_kitti.py:579-595): the gt cell
+    is the positive and every other cell a negative, loss = sum of
+    log(1 + exp(10 (pos - neg))) / (B (H W - 1)).
+
+    corr [B, H, W]; gt_u_px, gt_v_px [B] cell coordinates (float, cast to
+    integers by truncation as JAX's ``astype(int32)`` does)."""
+    B, H, W = corr.shape
+    v = clamped_index(gt_v_px, H)
+    u = clamped_index(gt_u_px, W)
+    pos = corr[torch.arange(B, device=corr.device), v, u]
+    pos_neg = pos[:, None, None] - corr
+    return torch.log1p(torch.exp(pos_neg * 10.0)).sum() / (B * (H * W - 1))

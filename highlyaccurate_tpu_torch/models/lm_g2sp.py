@@ -64,10 +64,13 @@ stay in line order; the satellite target is passed as a transposed view of
 the same columns, made once per level per forward (outside the rounds), so
 nothing is copied to sat-grid order: K6 takes the view's strides.
 
+The dense correlation head ``corr`` (JAX ``:485-559``) projects every
+level at the zero pose on the gather sampler and correlates it with the
+satellite features (``ops/correlation.py``); no hand kernel.
+
 ``check_supported`` refuses a direction other than G2SP with
 ``NotImplementedError``; ``loss_method`` other than 0 raises ``ValueError``
-in training, as in the JAX package, and ``corr`` (the correlation head)
-``NotImplementedError``.
+in training, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -80,12 +83,14 @@ from torch import nn
 
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import kitti as geom
-from highlyaccurate_tpu_torch.losses.losses import loss_func
+from highlyaccurate_tpu_torch.losses.losses import (loss_func,
+                                                   soft_margin_triplet)
 from highlyaccurate_tpu_torch.models.lm_s2gp import (_level_hw,
                                                     feature_dtype,
                                                     multi_starts,
                                                     normalized_cost)
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
+from highlyaccurate_tpu_torch.ops.correlation import grouped_corr, window_sum
 from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
                                                       grid_sample_derivs)
 from highlyaccurate_tpu_torch.ops.projline import (pack_projline_coefs,
@@ -99,6 +104,7 @@ from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
                                                      lm_update_implicit_pixel,
                                                      lm_update_pixel_moments,
                                                      pose_covariance)
+from highlyaccurate_tpu_torch.utils import geo as geo_utils
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 SLOT_CHANNELS = (256, 128, 64, 16)  # VGGUnet feature channels per slot
@@ -165,10 +171,9 @@ class LMG2SP(nn.Module):
         # per slot: the first satellite column j0 (the restriction is the
         # geo projection's, JAX lm_g2sp.py:80) and the ground points of the
         # kept columns in line order [V, A, 4]; rows 0 and 1 fix each
-        # line (its points are affine in the row index); with
-        # use_implicit_lm=0 a gather slot's whole grid [A, A, 4], which the
-        # finest slot keeps in any case (multi-start score, covariance);
-        # proj="nn" projects no ground points (inplane_uv_jac)
+        # line (its points are affine in the row index); and its whole
+        # grid [A, A, 4]; proj="nn" projects no ground points
+        # (inplane_uv_jac)
         self._col_start = {}
         for slot in self._slots:
             A = cfg.sat_size >> (3 - slot)
@@ -186,10 +191,11 @@ class LMG2SP(nn.Module):
                 np.ascontiguousarray(xyz1[0])), persistent=False)
             self.register_buffer(f"dx_{slot}", torch.from_numpy(
                 np.ascontiguousarray(xyz1[1] - xyz1[0])), persistent=False)
-            if (not (self._projline[slot] or self._implicit)
-                    or slot == self._slots[-1]):
-                self.register_buffer(f"grid_{slot}", torch.from_numpy(
-                    geom.warp_sat2real(A)), persistent=False)
+            # every slot's whole grid: the gather slots without the fast
+            # paths, the finest slot (multi-start score, covariance) and
+            # the corr head, which projects every level
+            self.register_buffer(f"grid_{slot}", torch.from_numpy(
+                geom.warp_sat2real(A)), persistent=False)
         self.to(dev)
         self.eval()
 
@@ -202,10 +208,69 @@ class LMG2SP(nn.Module):
         grd_feats, grd_confs = self.GrdFeatureNet(grd_img)
         return sat_feats, sat_confs, grd_feats, grd_confs
 
-    def corr(self, *args, **kwargs):
-        raise NotImplementedError(
-            "the corr head (dense correlation, soft_margin_triplet) is not "
-            "supported by highlyaccurate_tpu_torch yet")
+    def corr(self, sat_map, grd_img, camera_k, gt_pose=None,
+             mode: str = "train"):
+        """Exhaustive translation search by normalized correlation (port of
+        JAX ``lm_g2sp.py:485-559``; reference models_kitti.py:501-576).
+
+        Per level: the ground features projected at the zero pose
+        (``_grid_uv_jac`` on the gather sampler), centre-cropped to the
+        shift search window and normalized per sample, correlate against
+        the satellite features (``grouped_corr``); the surface is
+        2 - 2 corr / sqrt(windowed sum of sat_feat**2).  mode 'test' ->
+        the finest level's argmin (pred_u, pred_v), each [B] in meters;
+        mode 'train' -> the sum over levels of ``soft_margin_triplet`` at
+        the gt cell of ``gt_pose`` [B, 3] normalized, differentiable into
+        both feature networks.  camera_k [B, 3, 3] raw K.
+        """
+        cfg = self.cfg
+        B = sat_map.shape[0]
+        sat_feats, _ = self.SatFeatureNet(sat_map)
+        grd_feats, _ = self.GrdFeatureNet(grd_img)
+        pose0 = torch.zeros(B, 3, dtype=torch.float32, device=sat_map.device)
+        corr_maps = []
+        pred_u = pred_v = None
+        for lvl, slot in enumerate(self._slots):
+            mpp = geo_utils.get_meter_per_pixel() * (2 ** (3 - slot))
+            sat_feat = sat_feats[lvl]
+            A = sat_feat.shape[1]
+            Hg, Wg = grd_feats[lvl].shape[1:3]
+            uv, _, _ = self._grid_uv_jac(pose0, slot, camera_k, Hg, Wg)
+            g_proj = grid_sample(grd_feats[lvl], uv)[0]   # [B, A, A, C]
+
+            crop_h = int(A - cfg.shift_range_lat * 2 / mpp)
+            crop_w = int(A - cfg.shift_range_lon * 2 / mpp)
+            # torchvision's center_crop rounds the margin with Python
+            # round() (banker's), not floor (JAX lm_g2sp.py:515-520)
+            t0 = int(round((A - crop_h) / 2.0))
+            l0 = int(round((A - crop_w) / 2.0))
+            kernel = g_proj[:, t0:t0 + crop_h, l0:l0 + crop_w, :]
+            kflat = kernel.reshape(B, -1)
+            knorm = torch.sqrt(torch.clamp_min((kflat * kflat).sum(-1),
+                                               1e-24))
+            kernel = kernel / knorm[:, None, None, None]
+            corr = grouped_corr(sat_feat, kernel)         # [B, H', W']
+            denom = window_sum((sat_feat ** 2).sum(-1), crop_h, crop_w)
+            denom = torch.clamp_min(torch.sqrt(denom), 1e-6)
+            corr = 2 - 2 * corr / denom
+
+            corr_maps.append(corr)
+            ch, cw = corr.shape[1:]
+            flat_idx = torch.argmin(corr.reshape(B, -1), dim=1)
+            pred_u = (flat_idx % cw - cw / 2) * mpp
+            pred_v = -(flat_idx // cw - ch / 2) * mpp
+
+        if mode != "train":
+            return pred_u, pred_v
+        gt = gt_pose.float()
+        loss = 0.0
+        for slot, corr in zip(self._slots, corr_maps):
+            mpp = geo_utils.get_meter_per_pixel() * (2 ** (3 - slot))
+            ch, cw = corr.shape[1:]
+            w = torch.round(cw / 2 + gt[:, 0] * cfg.shift_range_lon / mpp)
+            h = torch.round(ch / 2 - gt[:, 1] * cfg.shift_range_lat / mpp)
+            loss = loss + soft_margin_triplet(corr, w, h)
+        return loss
 
     def _solver_round(self, pose, slot: int, grd_map, target, camera_k,
                       train: bool = False, conf=None):

@@ -72,7 +72,8 @@ from torch import nn
 
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import kitti as geom
-from highlyaccurate_tpu_torch.losses.losses import loss_func
+from highlyaccurate_tpu_torch.losses.losses import clamped_index, loss_func
+from highlyaccurate_tpu_torch.ops.correlation import grouped_corr, window_sum
 from highlyaccurate_tpu_torch.models.vggunet import LEVEL_SLOTS, VGGUnet
 from highlyaccurate_tpu_torch.ops.banded_warp import (banded_moments,
                                                       banded_sample,
@@ -84,6 +85,7 @@ from highlyaccurate_tpu_torch.solver.updates import (
     LMConfig, adam_update, lm_information, lm_update, lm_update_from_moments,
     lm_update_implicit, lm_update_implicit_pixel_norm, pose_covariance,
     sgd_update, uniform_draws)
+from highlyaccurate_tpu_torch.utils import geo as geo_utils
 from highlyaccurate_tpu_torch.utils.device import resolve_device
 
 
@@ -174,6 +176,27 @@ def _scaled_default_k(cfg: Config):
     return k
 
 
+def polar_grid(sat_size: int, slot: int, max_radius_m: float = 40.0):
+    """Polar satellite -> panorama sampling grid of pyramid slot ``slot``
+    (port of JAX ``lm_s2gp.py:189-204``; reference
+    models_kitti.py:1518-1541): [A / 2, 8 A, 2] satellite pixel coords,
+    numpy float32, A the slot's satellite side."""
+    A = sat_size // (2 ** (3 - slot))
+    # meters-per-pixel ladder (reference models_kitti.py:637-640), adjusted
+    # for non-default sat sizes
+    mpp = geo_utils.get_meter_per_pixel() * (
+        geo_utils.get_process_satmap_sidelength() / sat_size) * (
+        2 ** (3 - slot))
+    grd_H, grd_W = A // 2, A * 2
+    v, u = np.meshgrid(np.arange(grd_H, dtype=np.float32),
+                       np.arange(4 * grd_W, dtype=np.float32), indexing="ij")
+    theta = u / grd_W * np.pi * 2
+    radius = (1 - v / grd_H) * max_radius_m / mpp
+    us = A / 2 + radius * np.cos(np.pi / 4 - theta)
+    vs = A / 2 - radius * np.sin(np.pi / 4 - theta)
+    return np.stack([us, vs], axis=-1).astype(np.float32)
+
+
 def precompute_rays(cfg: Config):
     """Host-side per-level ground-plane rays (reference
     models_kitti.py:622-635): [(xyz [H, W, 3], mask [H, W], xyz_w)] * 4,
@@ -227,7 +250,7 @@ def draw_starts(generator, B: int, P: int, device) -> torch.Tensor:
     them from ``fold_in(make_rng("lm"), 0x5EED)``, which torch cannot
     reproduce; a test feeds both the same starts through this one
     function)."""
-    return uniform_draws(generator, (B, P, 3), device)
+    return uniform_draws(generator, (B, P, 3), device, batch_dim=0)
 
 
 def multi_starts(generator, B: int, P: int, init_pose, rotation_range,
@@ -750,6 +773,10 @@ class LMS2GP(S2GPBase):
         super().__init__()
         check_supported(cfg)
         geo = cfg.proj == "geo"
+        # the orien_corr head's polar grids, per slot (JAX lm_s2gp.py:227)
+        for slot in level_slots(cfg):
+            self.register_buffer(f"polar_{slot}", torch.from_numpy(
+                polar_grid(cfg.sat_size, slot)), persistent=False)
         # a projection other than geo and use_gt_depth leave the banded
         # path (JAX lm_s2gp.py:366-367)
         self._init_common(
@@ -858,3 +885,70 @@ class LMS2GP(S2GPBase):
         """
         return self._project_at_pose(sat_map, grd_img, (pred_pose, gt_pose),
                                      gt_depth=gt_depth)
+
+    def polar_transform(self, sat_feat, slot: int):
+        """Polar warp of satellite features (port of JAX
+        ``lm_s2gp.py:480-487``; reference models_kitti.py:1494-1516) on
+        the gather sampler: sat_feat [B, A, A, C] -> [B, A/2, 8A, C],
+        float32 (a bf16 map meets float32 weights)."""
+        grid = getattr(self, f"polar_{slot}")
+        return grid_sample(sat_feat, grid.expand(sat_feat.shape[0],
+                                                 *grid.shape))[0]
+
+    def orien_corr(self, sat_map, grd_img, gt_pose=None, mode: str = "train"):
+        """Orientation-only dense correlation head (port of JAX
+        ``lm_s2gp.py:489-557``; reference models_kitti.py:1543-1624).
+
+        Each level's ground features, normalized per sample, correlate
+        circularly against the polar-warped satellite features over the
+        heading candidates within +-rotation_range (``grouped_corr``).
+        mode 'test' -> the finest level's argmin heading [B] in degrees,
+        (idx - n) * degree_per_pixel; mode 'train' -> the heading triplet
+        loss (a scalar) against ``gt_pose`` [B, 3] normalized, summed over
+        the levels, differentiable into both feature networks.  The
+        features keep their dtype (``compute_dtype``); the polar map is
+        float32, so the correlation runs in float32.
+        """
+        cfg = self.cfg
+        sat_feats, _, grd_feats, *_ = self.extract_features(sat_map, grd_img)
+        B = sat_map.shape[0]
+        corr_list = []
+        orien = None
+        for lvl, slot in enumerate(self._slots):
+            grd_feat = grd_feats[lvl]                     # [B, H, W, C]
+            H, W = grd_feat.shape[1:3]
+            flat = grd_feat.reshape(B, -1)
+            norm = torch.sqrt(torch.clamp_min((flat * flat).sum(-1), 1e-24))
+            grd_feat = grd_feat / norm[:, None, None, None]
+
+            polar = self.polar_transform(sat_feats[lvl], slot)  # [B,H,4W',C]
+            degree_per_pixel = 90.0 / W
+            n = int(np.ceil(cfg.rotation_range / degree_per_pixel))
+            sat_W = polar.shape[2]
+            # circular padding: n columns before, and after up to W + n
+            if sat_W - W < n:
+                polar1 = torch.cat([polar[:, :, -n:], polar,
+                                    polar[:, :, :(n - sat_W + W)]], dim=2)
+            else:
+                polar1 = torch.cat([polar[:, :, -n:],
+                                    polar[:, :, :(W + n)]], dim=2)
+            corr = grouped_corr(polar1, grd_feat)[:, 0]   # [B, L-W+1]
+            denom = window_sum((polar1 ** 2).sum(-1), H, W)[:, 0]
+            denom = torch.clamp_min(torch.sqrt(denom), 1e-6)
+            corr = 2 - 2 * corr / denom
+            orien = (torch.argmin(corr, dim=-1) - n) * degree_per_pixel
+            corr_list.append((corr, degree_per_pixel))
+
+        if mode != "train":
+            return orien
+        # heading triplet loss (reference models_kitti.py:1607-1624)
+        gt_deg = gt_pose[:, 2].float() * cfg.rotation_range
+        rows = torch.arange(B, device=gt_deg.device)
+        loss = 0.0
+        for corr, dpp in corr_list:
+            Wc = corr.shape[1]
+            gt_idx = clamped_index((Wc - 1) / 2 + torch.round(gt_deg / dpp), Wc)
+            pos_neg = corr[rows, gt_idx][:, None] - corr
+            loss = loss + (torch.log1p(torch.exp(pos_neg * 10.0)).sum()
+                           / (B * (Wc - 1)))
+        return loss

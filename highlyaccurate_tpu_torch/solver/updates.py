@@ -29,7 +29,7 @@ gather path's update.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Union
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -83,13 +83,41 @@ class PresetDraws:
         return out
 
 
-Draws = Union[torch.Generator, PresetDraws]
+class ShardDraws:
+    """The draws of one shard of a data-parallel forward: of the numbers
+    the forward of the whole batch takes from ``source`` (a generator or
+    ``PresetDraws``, alike on every shard), a draw per image keeps this
+    shard's slice of its batch axis (shard ``index`` of ``shards`` equal
+    ones) and a draw per batch (a dropout keep-set) keeps all.  So every
+    shard advances its source as the whole batch would, and the shards
+    together draw what one forward of the whole batch draws."""
+
+    def __init__(self, source, shards: int, index: int):
+        self.source = source
+        self.shards = shards
+        self.index = index
+
+    def take(self, shape, batch_dim, device) -> torch.Tensor:
+        if batch_dim is None:
+            return uniform_draws(self.source, shape, device)
+        full = list(shape)
+        n = full[batch_dim]
+        full[batch_dim] = n * self.shards
+        return uniform_draws(self.source, tuple(full), device).narrow(
+            batch_dim, self.index * n, n)
 
 
-def uniform_draws(generator: Draws, shape, device) -> torch.Tensor:
+Draws = Union[torch.Generator, PresetDraws, ShardDraws]
+
+
+def uniform_draws(generator: Draws, shape, device,
+                  batch_dim: Optional[int] = None) -> torch.Tensor:
     """float32 numbers of ``shape``, uniform in [-1, 1): the next ones of a
     ``PresetDraws``, or new ones from a ``torch.Generator`` on
-    ``device``."""
+    ``device``; ``batch_dim``, the batch axis of a draw per image, tells a
+    ``ShardDraws`` which slice is its shard's."""
+    if isinstance(generator, ShardDraws):
+        return generator.take(shape, batch_dim, device)
     if isinstance(generator, PresetDraws):
         return generator.take(shape)
     return torch.rand(shape, generator=generator, dtype=torch.float32,
@@ -160,7 +188,8 @@ def _solve_and_reinit(pose, hess, g, damping_param, cfg: LMConfig,
     new = pose.to(torch.float32).clone()
     new[:, act] += delta
     if cfg.reinit and n == 3:
-        new = _reinit(new, uniform_draws(generator, (2, B), pose.device))
+        new = _reinit(new, uniform_draws(generator, (2, B), pose.device,
+                                         batch_dim=1))
     return new
 
 
@@ -312,7 +341,8 @@ def gn_update(pose, sat_feat, grd_feat, grd_conf, jac, cfg: LMConfig,
     sol, _ = torch.linalg.solve_ex(hess + 1e-8 * eye, g[..., None])
     new = _add_active(pose.to(torch.float32), act, -sol[..., 0])
     if generator is not None and n == 3:
-        new = _reinit(new, uniform_draws(generator, (2, B), pose.device))
+        new = _reinit(new, uniform_draws(generator, (2, B), pose.device,
+                                         batch_dim=1))
     return new
 
 

@@ -1,10 +1,5 @@
-"""The train and eval steps and the host-to-device prefetch (port of
-``highlyaccurate_tpu/train/step.py:80-215``), on one device.
-
-The JAX module also builds the data-parallel mesh (``make_mesh``,
-``make_mesh_for_batch``, ``shard_batch``, ``replicate``,
-``eval_batch_pad``); the port runs on one device and has no counterpart of
-them yet (queue A6, ``torch.distributed``).
+"""The train and eval steps, the data-parallel mesh and the host-to-device
+prefetch (port of ``highlyaccurate_tpu/train/step.py:29-215``).
 
     state = create_train_state(cfg, model)
     step = make_train_step(model, cfg)
@@ -25,20 +20,46 @@ they are.  ``freeze_backbones`` (the Ford ``--transformer`` restore) sets
 the two feature networks' gradients to zeros before Adam's step, as the
 JAX step zeroes them: Adam keeps their state, whose moments are zero after
 the restore, so it steps them by zero and the weights stay bit-equal.
+
+Data parallelism (JAX: one jitted program over a 1-D ``data`` mesh; here
+one process per card under ``torch.distributed``, ``train/distributed.py``):
+a ``Mesh`` is this process's devices over the processes of the group.
+Shard ``p * len(devices) + i`` of a global batch runs on ``devices[i]`` of
+the p-th process of the mesh.  The steps of ``make_train_step(mesh=)`` and
+``make_eval_step(mesh=)`` take this process's rows of the global batch
+(``shard_batch``): the train step (one device per process) averages the
+gradients and metrics over the processes before Adam, so every process
+keeps the same state bit for bit; the eval step runs each local device's
+slice on its replica and returns the outputs of the whole batch, gathered
+from every process in order.  Both hand each shard its slice of the
+numbers the whole batch's forward would draw (``ShardDraws``), from a
+generator seeded alike on every process.  Without a mesh nothing changes.
+
+    initialize()                                 # torchrun's environment
+    mesh = make_mesh_for_batch(cfg.batch_size)
+    step = make_train_step(model, cfg, mesh)
+    b = shard_batch(mesh, {"sat": sat, "grd": grd, "gt_pose": gt})
+    state, metrics = step(state, b["sat"], b["grd"], b["gt_pose"], generator)
 """
 
 from __future__ import annotations
 
 import collections
+import copy
 import dataclasses
+from typing import Optional
 
+import numpy as np
 import torch
+import torch.distributed as dist
 
 from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.models.lm_s2gp import (eval_draws_per_batch,
                                                      eval_draws_per_image)
 from highlyaccurate_tpu_torch.solver.updates import (PresetDraws,
+                                                     ShardDraws,
                                                      uniform_draws)
+from highlyaccurate_tpu_torch.train import distributed
 from highlyaccurate_tpu_torch.train.state import TrainState
 
 METRICS = ("loss_decrease", "shift_lat_decrease", "shift_lon_decrease",
@@ -46,8 +67,163 @@ METRICS = ("loss_decrease", "shift_lat_decrease", "shift_lon_decrease",
            "theta_last")
 
 
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D data mesh: ``devices``, this process's devices in shard order
+    (one model replica each), over the processes ``ranks`` of the
+    ``torch.distributed`` group ``group`` (None: the default group; no
+    ranks: this process alone, no collective)."""
+    devices: tuple
+    ranks: tuple = ()
+    group: object = None
+
+    @property
+    def processes(self) -> int:
+        return max(len(self.ranks), 1)
+
+    @property
+    def index(self) -> int:
+        """This process's place among the mesh's processes (-1: not in
+        it)."""
+        if not self.ranks:
+            return 0
+        r = dist.get_rank()
+        return self.ranks.index(r) if r in self.ranks else -1
+
+    @property
+    def size(self) -> int:
+        """Shards of a global batch: processes times local devices."""
+        return self.processes * len(self.devices)
+
+
+def make_mesh(devices=None) -> Mesh:
+    """1-D data-parallel mesh.  In a process group: every process of it,
+    each on ``devices`` (default its own device, ``distributed.
+    local_device``: the CPU under gloo, else the card of its local rank).
+    Without one: this process alone, on ``devices`` (default every visible
+    card)."""
+    if dist.is_initialized():
+        if devices is None:
+            devices = [distributed.local_device(
+                "cpu" if dist.get_backend() == "gloo" else None)]
+        return Mesh(tuple(torch.device(d) for d in devices),
+                    tuple(range(dist.get_world_size())))
+    if devices is None:
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    if not devices:
+        raise ValueError("make_mesh: no devices (no card is visible; pass "
+                         "devices=['cpu'])")
+    return Mesh(tuple(torch.device(d) for d in devices))
+
+
+def make_mesh_for_batch(batch_size: int, devices=None) -> Mesh:
+    """Data mesh over the largest shard count that divides the batch.
+
+    Training batches must divide evenly across the mesh (gradients are a
+    mean over real samples; padding would bias them), so a batch size not
+    divisible by the device count idles devices; warn loudly instead of
+    silently shrinking.  Eval pads ragged batches to the full mesh
+    instead (``eval_batch_pad``).  In a process group the shards are the
+    processes (one device each), and a smaller mesh gets a group of its
+    own, which every process must make: call this on every process."""
+    mesh = make_mesh(devices)
+    if mesh.ranks and len(mesh.devices) != 1:
+        raise ValueError("a training mesh in a process group takes one "
+                         "device per process")
+    total = mesh.size
+    n = total
+    while n > 1 and batch_size % n != 0:
+        n -= 1
+    if n == total:
+        return mesh
+    good = sorted({m * total for m in range(1, 3)}
+                  | {batch_size - batch_size % total + total})
+    print(f"WARNING: batch_size={batch_size} is not divisible by the "
+          f"{total} available devices — training will use only "
+          f"{n} chip(s) and idle {total - n}. "
+          f"Use a batch size that is a multiple of {total} "
+          f"(e.g. {good}) to engage the whole mesh.")
+    if not mesh.ranks:
+        return Mesh(mesh.devices[:n])
+    ranks = tuple(range(n))
+    return Mesh(mesh.devices, ranks, dist.new_group(list(ranks)))
+
+
+def eval_batch_pad(batch_size: int, mesh: Optional[Mesh]) -> int:
+    """Smallest multiple of the mesh size >= batch_size (eval batches are
+    padded up to this so inference shards across every device; the pad
+    rows are duplicates and are trimmed from the outputs)."""
+    if mesh is None:
+        return batch_size
+    n = mesh.size
+    return -(-batch_size // n) * n
+
+
+def process_rows(mesh: Mesh, n: int) -> slice:
+    """This process's rows of a global batch of ``n`` (a multiple of the
+    mesh's processes)."""
+    per = n // mesh.processes
+    return slice(mesh.index * per, (mesh.index + 1) * per)
+
+
+def pad_rows(x, n: int):
+    """Host array ``x`` with copies of its last row appended up to ``n``
+    rows (an eval batch padded to ``eval_batch_pad``)."""
+    pad = n - x.shape[0]
+    return x if pad <= 0 else np.concatenate([x, np.repeat(x[-1:], pad, 0)])
+
+
+def shard_batch(mesh: Mesh, batch):
+    """This process's rows of a host batch (a dict, list or tuple of arrays
+    with the batch axis first, or one array), on the mesh's first local
+    device (``to_device``: the copies do not wait)."""
+    def place(x):
+        return to_device(x[process_rows(mesh, x.shape[0])], mesh.devices[0])
+
+    if isinstance(batch, dict):
+        return {k: place(v) for k, v in batch.items()}
+    if isinstance(batch, (list, tuple)):
+        return type(batch)(place(v) for v in batch)
+    return place(batch)
+
+
+def replicate(mesh: Mesh, model: torch.nn.Module) -> list:
+    """The model on each of this process's devices, after every process of
+    the mesh took the first one's weights and buffers (a broadcast; none
+    without a group).  A device the model is on serves from the model
+    itself; another gets a copy, made now: replicate again after the
+    weights change."""
+    if mesh.ranks:
+        for t in list(model.parameters()) + list(model.buffers()):
+            dist.broadcast(t.data, src=mesh.ranks[0], group=mesh.group)
+    return [model if model.device == d else copy.deepcopy(model).to(d)
+            for d in mesh.devices]
+
+
+def _average(mesh: Mesh, tensors) -> list:
+    """Each tensor's mean over the mesh's processes (one all-reduce of the
+    tensors flattened together; every process gets the same bits)."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=mesh.group)
+    flat /= mesh.processes
+    return [f.view_as(t) for t, f in
+            zip(tensors, flat.split([t.numel() for t in tensors]))]
+
+
+def _gather(mesh: Mesh, t):
+    """Every process's ``t`` (equal shapes), concatenated in the mesh's
+    order along the first axis."""
+    if not mesh.ranks:
+        return t
+    parts = [torch.empty_like(t) for _ in mesh.ranks]
+    dist.all_gather(parts, t.contiguous(), group=mesh.group)
+    return torch.cat(parts)
+
+
 def make_train_step(model: torch.nn.Module, cfg: Config,
-                    ford_side_m=None, freeze_backbones: bool = False):
+                    mesh: Optional[Mesh] = None, ford_side_m=None,
+                    freeze_backbones: bool = False):
     """S2GP (an ``LMS2GP``): ``step(state, sat, grd, gt_pose, generator)``;
     G2SP (an ``LMG2SP``): ``step(state, sat, grd, camera_k, gt_pose,
     generator)``; Ford (an ``LMS2GPFord``, with ``ford_side_m`` the
@@ -67,9 +243,21 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
     names, as detached tensors on the device ("loss" scalar, the rest [L]).
     ``freeze_backbones`` zeroes the feature networks' gradients before
     each optimizer step (JAX ``train/step.py:139-143``).
+
+    With a ``mesh`` (one device per process, the model's): the batch
+    arguments are this process's rows of the global batch (``shard_batch``)
+    and ``generator`` is seeded alike on every process; the step draws as
+    the whole batch would (``ShardDraws``), and averages the gradients and
+    the metrics over the mesh's processes (one all-reduce each) before
+    Adam, so the state stays the same on every process.
     """
     g2sp = cfg.direction == "G2SP"
     ford = ford_side_m is not None
+    if mesh is not None and (len(mesh.devices) != 1
+                             or mesh.devices[0] != model.device):
+        raise ValueError(f"a training mesh holds the model's device alone "
+                         f"({model.device}), one process per device; got "
+                         f"{list(mesh.devices)}")
     frozen = ([p for net in (model.SatFeatureNet, model.GrdFeatureNet)
                for p in net.parameters()] if freeze_backbones else [])
 
@@ -84,15 +272,24 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
         else:
             gt_pose, generator = rest
             args, fwd = (), dict(generator=generator, gt_depth=gt_depth)
+        if mesh is not None and fwd.get("generator") is not None:
+            fwd["generator"] = ShardDraws(fwd["generator"], mesh.size,
+                                          mesh.index)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
         out = model(sat, grd, *args, mode="train", gt_pose=gt_pose, **fwd)
         out.loss.backward()
         for p in frozen:
             p.grad = torch.zeros_like(p)
-        opt.step()
         metrics = {"loss": out.loss.detach()}
         metrics.update((k, getattr(out, k).detach()) for k in METRICS)
+        if mesh is not None and mesh.ranks:
+            params = [p for p in model.parameters() if p.grad is not None]
+            for p, g in zip(params, _average(mesh, [p.grad for p in params])):
+                p.grad = g
+            metrics = dict(zip(metrics, _average(mesh, list(
+                metrics.values()))))
+        opt.step()
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return step
@@ -139,14 +336,18 @@ class EvalProgram(torch.nn.Module):
     cannot take a generator; a count that does not match what the forward
     takes raises.  ``ford_layout`` fixes Ford's banded kernel layout (an
     exported program cannot read the rig on the host); None reads it from
-    each batch's rig.
+    each batch's rig.  ``shard`` = (shards, index): the program serves
+    shard ``index`` of a batch split in ``shards`` equal ones; draws are
+    then the whole batch's (``n_draws`` of its size), of which it takes
+    its own (``ShardDraws``).
     """
 
     def __init__(self, model: torch.nn.Module, cfg: Config,
                  ford_side_m=None, warm_start: bool = False,
-                 with_info: bool = False, ford_layout=None):
+                 with_info: bool = False, ford_layout=None, shard=None):
         super().__init__()
         self.model = model
+        self.shard = shard
         self.g2sp = cfg.direction == "G2SP"
         self.ford_side_m = ford_side_m
         self.warm_start = warm_start
@@ -163,8 +364,9 @@ class EvalProgram(torch.nn.Module):
         *extras, draws = rest
         init = extras.pop() if self.warm_start else None
         generator = PresetDraws(draws)
-        kw = dict(mode="test", init_pose=init, generator=generator,
-                  with_info=self.with_info)
+        kw = dict(mode="test", init_pose=init, with_info=self.with_info,
+                  generator=(generator if self.shard is None
+                             else ShardDraws(generator, *self.shard)))
         if self.ford_side_m is not None:
             R_FL, T_FL = extras
             out = self.model(sat, grd, self.ford_side_m, R_FL, T_FL,
@@ -183,11 +385,12 @@ class EvalProgram(torch.nn.Module):
         return out
 
 
-def make_eval_step(model: torch.nn.Module, cfg: Config, ford_side_m=None,
+def make_eval_step(model: torch.nn.Module, cfg: Config,
+                   mesh: Optional[Mesh] = None, ford_side_m=None,
                    warm_start: bool = False, with_info: bool = False):
-    """Inference (port of JAX ``make_eval_step`` without the mesh): the
-    final (shift_lat, shift_lon, theta), each [B], and with ``with_info``
-    their pose covariance [B, 3, 3] (normalized, pose order).
+    """Inference (port of JAX ``make_eval_step``): the final (shift_lat,
+    shift_lon, theta), each [B], and with ``with_info`` their pose
+    covariance [B, 3, 3] (normalized, pose order).
 
     S2GP (an ``LMS2GP``): ``step(sat, grd[, init_pose], generator)``; G2SP
     (an ``LMG2SP``): ``step(sat, grd, camera_k[, init_pose], generator)``;
@@ -199,19 +402,56 @@ def make_eval_step(model: torch.nn.Module, cfg: Config, ford_side_m=None,
     forward, in one call, and runs ``EvalProgram`` on them, so a program
     exported from ``EvalProgram`` and fed numbers from a generator seeded
     alike gives the same outputs.  The model holds its weights; the step
-    runs under ``torch.no_grad()``."""
-    program = EvalProgram(model, cfg, ford_side_m, warm_start, with_info)
+    runs under ``torch.no_grad()``.
+
+    With a ``mesh``: the arguments are this process's rows of the global
+    (padded) batch, a multiple of the local devices (``shard_batch``); each
+    local device runs its slice on its replica (``replicate``, made with
+    the step), drawing its part of the whole batch's numbers, and the step
+    returns the outputs of the whole global batch, in order, on the mesh's
+    first device (every process gets them all).  A Ford rig stays where it
+    is given (the host, for the kernel layout)."""
+    if mesh is None:
+        program = EvalProgram(model, cfg, ford_side_m, warm_start, with_info)
+        programs, devices = [program], None
+    else:
+        if mesh.index < 0:
+            raise ValueError("this process is not in the evaluation mesh")
+        nd = len(mesh.devices)
+        programs = [EvalProgram(m, cfg, ford_side_m, warm_start, with_info,
+                                shard=(mesh.size, mesh.index * nd + i))
+                    for i, m in enumerate(replicate(mesh, model))]
+        devices = mesh.devices
+    n_rigs = 2 if ford_side_m is not None else 0
 
     @torch.no_grad()
     def step(sat, grd, *rest):
         *args, generator = rest
-        n = program.n_draws(sat.shape[0])
+        if devices is None:
+            B, dev = sat.shape[0], sat.device
+        else:
+            if sat.shape[0] % len(devices):
+                raise ValueError(f"a batch of {sat.shape[0]} does not split "
+                                 f"over {len(devices)} local devices")
+            b = sat.shape[0] // len(devices)
+            B, dev = b * mesh.size, devices[0]
+        n = programs[0].n_draws(B)
         if n and generator is None:
             raise ValueError("this evaluation draws random numbers "
                              "(multi-start, dropout or re-init): pass a "
                              "generator")
-        draws = (uniform_draws(generator, (n,), sat.device) if n
-                 else sat.new_zeros(0))
-        return program(sat, grd, *args, draws)
+        draws = (uniform_draws(generator, (n,), dev) if n
+                 else sat.new_zeros(0, device=dev))
+        if devices is None:
+            return programs[0](sat, grd, *args, draws)
+        outs = []
+        for i, (program, d) in enumerate(zip(programs, devices)):
+            rows = slice(i * b, (i + 1) * b)
+            part = [x[rows] if 2 <= j < 2 + n_rigs
+                    else x[rows].to(d, non_blocking=True)
+                    for j, x in enumerate((sat, grd, *args))]
+            outs.append(program(*part, draws.to(d)))
+        return tuple(_gather(mesh, torch.cat([o[k].to(dev) for o in outs]))
+                     for k in range(len(outs[0])))
 
     return step

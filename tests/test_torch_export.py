@@ -2,7 +2,8 @@
 serves the same outputs as the live ``Localizer`` it came from (KITTI
 S2GP with batch sizes [1, 2], G2SP, Ford, S2GP with ``warm_start`` and
 ``return_cov``, with ``dropout`` and with ``Optimizer="NN"``, G2SP with
-``proj="nn"`` and Ford with ``estimate_depth``), and it
+``proj="nn"`` and Ford with ``estimate_depth``), that an export leaves
+later live answers as they were, and it
 refuses what it cannot serve: another format (a
 JAX artifact included), another device type, ``init_pose`` without
 ``warm_start``, and a Ford rig of the other kernel layout.  On the card
@@ -147,3 +148,20 @@ def test_exported_refusals(artifacts, tmp_path):
                         [0.0, 0.0, 1.0]]], np.float32)
     with pytest.raises(ValueError, match="other banded kernel layout"):
         srv.predict(sat, grd, R_FL=turned, T_FL=FORD_T[None])
+
+
+@pytest.mark.parametrize("name", ["g2sp_nn", "s2gp_sizes"])
+def test_export_then_live_is_order_free(tmp_path, name):
+    """A live answer does not depend on an export earlier in the process:
+    live, export, live again, each live ``Localizer`` fresh and seeded
+    alike, bit for bit (a cache that kept a tensor made while the export
+    traced once turned every later G2SP nn answer into the zero pose)."""
+    cfg, _, exp = CASES[name]
+    sat, grd = _images(cfg, 3, 5)
+    first = _localizer(name).predict(sat, grd)
+    assert max(float(np.abs(v).max()) for v in first.values()) > 1e-3
+    _localizer(name).export(str(tmp_path / "a.zip"), **exp)
+    again = _localizer(name).predict(sat, grd)
+    assert sorted(again) == sorted(first)
+    for k, v in first.items():
+        np.testing.assert_array_equal(again[k], v, err_msg=k)

@@ -1,8 +1,8 @@
 """Port parity for the G2SP model: ``lm_update_implicit_pixel``, one solver
-round, the ``LMG2SP`` trajectory and the G2SP ``Localizer`` against the JAX
-package (``use_banded_warp=2``: the projective-line kernel in interpret
-mode) on the same weights and images; the projections served like JAX;
-and what the port refuses.
+round, the ``LMG2SP`` trajectory, the G2SP ``Localizer`` and the ``corr``
+head against the JAX package (``use_banded_warp=2``: the projective-line
+kernel in interpret mode) on the same weights and images; the projections
+served like JAX; and what the port refuses.
 
 ``TINY`` (128x128 satellite, 64x256 ground, level 3) keeps every level's
 ground map on the projective-line sampler (8 / 16 / 32 rows; at a 32-row
@@ -324,6 +324,39 @@ def test_proj_options_serve_like_jax(proj):
     np.testing.assert_allclose(g, w, atol=1e-3, rtol=0)
 
 
+def test_g2sp_corr_head_parity():
+    """The dense correlation head at every level of the level-3 model
+    (search window +-2 m), against JAX on the same weights: the test-mode
+    estimates equal, the train loss within 1e-5 relative.  Both
+    feature networks get a gradient."""
+    kw = dict(shift_range_lat=2.0, shift_range_lon=2.0)
+    params = _params(5)
+    jmodel = JLMG2SP(cfg=JConfig(**TINY, **kw))
+    sat, grd = _images(5)
+    gt = np.random.RandomState(5).uniform(-0.5, 0.5, (B, 3)).astype(
+        np.float32)
+    k = jnp.asarray(_camera_k())
+    want_loss, want_uv = jax.jit(lambda p: (
+        jmodel.apply({"params": p}, sat, grd, k, gt, mode="train",
+                     method="corr"),
+        jmodel.apply({"params": p}, sat, grd, k, mode="test",
+                     method="corr")))(params)
+    model = _port_model(params, **kw)
+    ts = [torch.from_numpy(a) for a in (sat, grd, _camera_k())]
+    loss = model.corr(*ts, torch.from_numpy(gt), mode="train")
+    loss.backward()
+    for net in (model.SatFeatureNet, model.GrdFeatureNet):
+        assert any(p.grad is not None and p.grad.abs().max() > 0
+                   for p in net.parameters())
+    print("corr loss port / JAX:", float(loss), float(want_loss))
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * abs(
+        float(want_loss))
+    with torch.no_grad():
+        got_uv = model.corr(*ts, mode="test")
+    for g, w in zip(got_uv, want_uv):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
 def test_g2sp_refusals_and_errors():
     from highlyaccurate_tpu_torch.inference import Localizer
     # a 32-row ground input: the coarse level's map is 4 rows, which the
@@ -340,8 +373,6 @@ def test_g2sp_refusals_and_errors():
     with pytest.warns(UserWarning, match="UNCALIBRATED"):
         out = loc.predict(sat, grd, camera_k=K, return_cov=True)
     assert out["cov"].shape == (sat.shape[0], 3, 3)
-    with pytest.raises(NotImplementedError, match="corr head"):
-        loc.model.corr()
     loc1 = Localizer(Config(**TINY, loss_method=1), random_init=True,
                      device="cpu")
     loc1.predict(sat, grd, camera_k=K)    # serving ignores the loss
