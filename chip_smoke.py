@@ -158,6 +158,12 @@ Builds the hand-written kernels from the sources in the checkout, then:
    mesh=)`` and ``Localizer(mesh=)``, each bit for bit against its plain
    path, with their K2 / K3 and K1 launches; with two cards a world of 2
    NCCL processes (``--dp-worker``), else a line that it did not run.
+17. bench: the port's benchmark entry point (``python -m
+   highlyaccurate_tpu_torch.bench``, ``phase_bench``) in a process of its
+   own, restricted to the headline (S2GP serving at batch 32, bf16
+   features) and the two paths no other phase drives (bf16 training, the
+   warm-started tracking loop at batch 1); each of its children checks its
+   kernel launches; its exit 0, its contract lines and the card it names.
 
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
 second checkout in DIR (the parent commit) and of this one in turns, and
@@ -165,8 +171,8 @@ second checkout in DIR (the parent commit) and of this one in turns, and
 ``--serving-api`` runs the kernels' build and phase 12 alone,
 ``--solver-options [NAME ...]`` phase 13 (or the configurations named, as
 in ``SOLVER_OPTIONS``), ``--proj-options [NAME ...]`` phase 14 (names as
-in ``PROJ_OPTIONS``), ``--corr-heads`` phase 15 and ``--data-parallel``
-phase 16.
+in ``PROJ_OPTIONS``), ``--corr-heads`` phase 15, ``--data-parallel``
+phase 16 and ``--bench`` phase 17.
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -397,12 +403,8 @@ def repeatable(torch, got, launch):
 
 
 def _counters():
-    from highlyaccurate_tpu_torch.ops import banded_warp as bw
-    from highlyaccurate_tpu_torch.ops import projline as tpl
-    return {"k1": bw.banded_moments, "k2": bw.banded_sample,
-            "k3": bw.banded_sample_backward,
-            "k4": tpl.projline_sample_forward,
-            "k5": tpl.projline_sample_backward, "k6": tpl.projline_pixmom}
+    from highlyaccurate_tpu_torch.ops import launch_counters
+    return launch_counters()
 
 
 def reset_launches():
@@ -3692,6 +3694,62 @@ def phase_data_parallel(torch, dev):
         fail("data_parallel: the mesh path is not bit for bit the plain one")
 
 
+BENCH_ONLY = "bf16_train_fps,tracking_warm2_b1_latency_ms"
+BENCH_TIMEOUT_S = 420
+CONTRACT_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
+
+
+def phase_bench(torch, dev):
+    """The port's benchmark entry point, ``python -m
+    highlyaccurate_tpu_torch.bench``, in a process of its own with
+    ``_BENCH_ONLY=BENCH_ONLY``: the headline (S2GP serving, batch 32, bf16
+    features) and the two metrics no other phase drives, bf16 training and
+    the warm-started tracking loop at batch 1.  Each of its children
+    checks its own kernel launches.  Fails unless it exits 0, every line
+    of its output that starts with "{" is a contract line, the last
+    line's headline is > 0, both extras are numbers and ``extra.device``
+    names this card.  Prints one JSON line; the bench's standard error goes
+    to chiprun_out/bench.log."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "highlyaccurate_tpu_torch.bench"],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        env=dict(os.environ, _BENCH_ONLY=BENCH_ONLY), stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=BENCH_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.terminate()  # the bench then stops its child's process group
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        fail(f"bench: no end within {BENCH_TIMEOUT_S} s")
+    seconds = time.perf_counter() - t0
+    os.makedirs("chiprun_out", exist_ok=True)
+    with open("chiprun_out/bench.log", "w") as f:
+        f.write(err)
+    lines = [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or not lines:
+        fail(f"bench exited {proc.returncode} with {len(lines)} lines: "
+             f"{out[-2000:]} {err[-2000:]}")
+    if any(set(d) != CONTRACT_KEYS for d in lines):
+        fail(f"bench: a line is not a contract line: {lines}")
+    last = lines[-1]
+    extra = last["extra"]
+    names = BENCH_ONLY.split(",")
+    emit(dict(phase="bench", seconds=seconds, lines=len(lines),
+              metric=last["metric"], value=last["value"],
+              vs_baseline=last["vs_baseline"], extra=extra))
+    if not last["value"] > 0:
+        fail(f"bench: the headline reads {last['value']}")
+    if not all(isinstance(extra.get(k), (int, float)) for k in names):
+        fail(f"bench: extras {names} are not all numbers: {extra}")
+    if extra.get("device", {}).get("name") != torch.cuda.get_device_name(0):
+        fail(f"bench: extra.device {extra.get('device')} is not this card")
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -3822,6 +3880,8 @@ def main():
     phase_corr_heads(torch, dev)
     torch.cuda.empty_cache()
     phase_data_parallel(torch, dev)
+    torch.cuda.empty_cache()
+    phase_bench(torch, dev)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes
@@ -3908,8 +3968,9 @@ def ab_turns(flag, parent):
 
 def phase_alone(phase, *args):
     """``python3 chip_smoke.py --serving-api``, ``--solver-options [NAME
-    ...]``, ``--proj-options [NAME ...]``, ``--corr-heads`` or
-    ``--data-parallel``: the kernels' build and that phase alone."""
+    ...]``, ``--proj-options [NAME ...]``, ``--corr-heads``,
+    ``--data-parallel`` or ``--bench``: the kernels' build and that phase
+    alone."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3934,6 +3995,8 @@ if __name__ == "__main__":
         phase_alone(phase_corr_heads)
     elif sys.argv[1:] == ["--data-parallel"]:
         phase_alone(phase_data_parallel)
+    elif sys.argv[1:] == ["--bench"]:
+        phase_alone(phase_bench)
     elif sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 6:
         dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])

@@ -1,0 +1,17 @@
+"""The port's hand-written kernels and their plain versions.
+
+``launch_counters`` names each kernel's wrapper by its id; a wrapper's
+``launches`` attribute counts the launches of its CUDA kernel (never its
+plain version's runs on the CPU).
+"""
+
+
+def launch_counters() -> dict:
+    """{"k1": ..., "k6": ...}: the wrapper of each kernel, whose
+    ``launches`` counts its launches."""
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+    from highlyaccurate_tpu_torch.ops import projline as tpl
+    return {"k1": bw.banded_moments, "k2": bw.banded_sample,
+            "k3": bw.banded_sample_backward,
+            "k4": tpl.projline_sample_forward,
+            "k5": tpl.projline_sample_backward, "k6": tpl.projline_pixmom}
