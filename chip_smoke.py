@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py              # from the repository root
 
-Builds the hand-written kernels from the sources in the checkout, then:
+Builds the hand-written kernels from the sources in the checkout, runs
+phase 17 (bench) before anything else touches the card, so that the
+bench's children have the whole card, then:
 
 1. kernels: K1 (``banded_moments``), K2 (``banded_sample_forward``) and K3
    (``banded_sample_backward``) at each flagship launch shape (KITTI S2GP,
@@ -158,12 +160,18 @@ Builds the hand-written kernels from the sources in the checkout, then:
    mesh=)`` and ``Localizer(mesh=)``, each bit for bit against its plain
    path, with their K2 / K3 and K1 launches; with two cards a world of 2
    NCCL processes (``--dp-worker``), else a line that it did not run.
-17. bench: the port's benchmark entry point (``python -m
-   highlyaccurate_tpu_torch.bench``, ``phase_bench``) in a process of its
-   own, restricted to the headline (S2GP serving at batch 32, bf16
-   features) and the two paths no other phase drives (bf16 training, the
-   warm-started tracking loop at batch 1); each of its children checks its
-   kernel launches; its exit 0, its contract lines and the card it names.
+17. bench (run first, right after the build): the port's benchmark entry
+   point (``python -m highlyaccurate_tpu_torch.bench``, ``phase_bench``)
+   in a process of its own, restricted to the headline (S2GP serving at
+   batch 32, bf16 features) and the two paths no other phase drives (bf16
+   training, the warm-started tracking loop at batch 1); each of its
+   children checks its kernel launches; its exit 0, its contract lines and
+   the card it names.
+18. bench_paths: those paths built in this process by ``bench.build``
+   (``phase_bench_paths``): K1 against its plain version at batch 32
+   (bf16 features) and 1; the tracking loop's two chained calls, bf16
+   serving and one bf16 train step's loss against the CPU within
+   ``BENCH_TOL``; a profiled call of each of ``BENCH_PROFILED``.
 
 ``python3 chip_smoke.py --ab-g2sp-kernels DIR`` instead times K4-K6 of a
 second checkout in DIR (the parent commit) and of this one in turns, and
@@ -172,7 +180,7 @@ second checkout in DIR (the parent commit) and of this one in turns, and
 ``--solver-options [NAME ...]`` phase 13 (or the configurations named, as
 in ``SOLVER_OPTIONS``), ``--proj-options [NAME ...]`` phase 14 (names as
 in ``PROJ_OPTIONS``), ``--corr-heads`` phase 15, ``--data-parallel``
-phase 16 and ``--bench`` phase 17.
+phase 16 and ``--bench`` phases 17 and 18.
 
 Every phase prints one JSON line; any failure exits non-zero.  Convolutions
 and matrix products run in full fp32 (TF32 off).  The last four lines are
@@ -183,6 +191,7 @@ limit, and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -191,6 +200,13 @@ import time
 import warnings
 
 import numpy as np
+
+try:  # the port, from the root of its repository
+    from highlyaccurate_tpu_torch.ops import (expect_launches, launch_counts,
+                                              reset_launches)
+except ImportError as e:
+    sys.exit(f"chip_smoke: FAIL: the port is not importable from here "
+             f"({e}); run from the repository root")
 
 # H100 SXM published peaks: HBM bytes/s and fp32 (non-tensor-core) flop/s
 PEAK_BYTES = 3.35e12
@@ -400,28 +416,6 @@ def repeatable(torch, got, launch):
     again = launch()
     torch.cuda.synchronize()
     return bool(torch.equal(got, again))
-
-
-def _counters():
-    from highlyaccurate_tpu_torch.ops import launch_counters
-    return launch_counters()
-
-
-def reset_launches():
-    """Set every kernel's launch count to 0."""
-    for fn in _counters().values():
-        fn.launches = 0
-
-
-def expect_launches(what, expected):
-    """Every kernel's launch count since ``reset_launches``; fails unless
-    the kernels in ``expected`` launched exactly that often and the others
-    never."""
-    got = {k: fn.launches for k, fn in _counters().items()}
-    want = {k: expected.get(k, 0) for k in got}
-    if got != want:
-        fail(f"{what} launched the kernels {got} times, expected {want}")
-    return got
 
 
 def sampler_checks(torch, bw, sat_k, coefs, W, gen, flush, slot):
@@ -1093,22 +1087,27 @@ def serve_row(phase, config, window, split, init_s, **extra):
     return row
 
 
+def tf32_convs(torch, fn):
+    """``fn()`` with TF32 convolutions (a known perturbation for scale)."""
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        return fn()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+
+
 def traj_vs_cpu(torch, card_traj, cpu_traj, tol, what):
     """Round-1 and all-round pose differences of the card's trajectory
-    against the CPU's at batch 2, beside the card with TF32 convolutions (a
-    known perturbation for scale); fails if round 1 differs by more than
-    ``tol``.  Where the model re-inits, the two generators draw different
+    against the CPU's (at batch 2 in the serving phases), beside the card
+    with TF32 convolutions (a known perturbation for scale); fails if round
+    1 differs by more than ``tol``.  Where the model re-inits, the two generators draw different
     numbers, so a re-init in round 1 fails as loudly as a wrong kernel."""
     with torch.no_grad():
         t0 = time.perf_counter()
         tc = cpu_traj()
         cpu_s = time.perf_counter() - t0
         tg = card_traj()
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            tt = card_traj()
-        finally:
-            torch.backends.cudnn.allow_tf32 = False
+        tt = tf32_convs(torch, card_traj)
     tc, tg, tt = (torch.stack(t, -1).cpu().numpy() for t in (tc, tg, tt))
     if not all(np.isfinite(t).all() for t in (tc, tg, tt)):
         fail(f"non-finite {what} trajectory")
@@ -1116,7 +1115,7 @@ def traj_vs_cpu(torch, card_traj, cpu_traj, tol, what):
     round1 = float(d[:, 0, 0].max())
     if round1 > tol:
         fail(f"{what} round-1 pose differs between card and CPU by {round1}")
-    return dict(batch=2, round1_max_abs=round1,
+    return dict(batch=int(tc.shape[0]), round1_max_abs=round1,
                 all_rounds_max_abs=float(d.max()), round1_tol=tol,
                 round1_max_abs_tf32_convs=float(
                     np.abs(tt - tc)[:, 0, 0].max()), cpu_s=cpu_s)
@@ -1129,6 +1128,46 @@ def cpu_twin(family, model):
     return cpu
 
 
+def first_round_moments(torch, model, sat, grd, what):
+    """K1 on the first round's lines (pose 0) of every level of an S2GP
+    ``model``'s features of ``sat``, ``grd``, in the map and target dtypes
+    its forward gives K1, against the plain version; fails beyond
+    ``KERNEL_TOL``.  One {level, batch, max_abs_err, max_rel_err} a
+    level."""
+    from highlyaccurate_tpu_torch.geometry.kitti import s2gp_uv_jac
+    from highlyaccurate_tpu_torch.models.lm_s2gp import (banded_project,
+                                                         bf16_map, row_start)
+    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+
+    cfg = model.cfg
+    bf16 = bf16_map(cfg)
+    errs = []
+    with torch.no_grad():
+        sf, _, gf, _ = model.extract_features(sat, grd)
+        pose0 = torch.zeros(sat.shape[0], 3, device=sat.device)
+        for lvl, slot in enumerate(model._slots):
+            A = sf[lvl].shape[1]
+            mask = getattr(model, f"mask_{slot}")
+            uv01, duv01 = s2gp_uv_jac(pose0, getattr(model, f"rows01_{slot}"),
+                                      A, cfg.rotation_range,
+                                      cfg.shift_range_lat, cfg.shift_range_lon)
+            H = gf[lvl].shape[1]
+            rows = gf[lvl][:, row_start(cfg, H):].to(torch.float32).contiguous()
+            sat_l = sf[lvl].to(torch.bfloat16 if bf16 else torch.float32)
+            M, _, _ = banded_project(cfg, sat_l, uv01, duv01, mask, rows)
+            uv01s = uv01.flip(-1)
+            Mp = bw.banded_moments_reference(
+                sat_l.transpose(1, 2), rows, mask, uv01s[:, :, 0],
+                uv01s[:, :, 1], RB=bw.default_rb(A), bf16_map=bf16)
+            abs_err, rel_err, ok = moment_error(M, Mp)
+            if not ok:
+                fail(f"{what}: first-round moments disagree at level {lvl}: "
+                     f"{abs_err} abs, {rel_err} rel")
+            errs.append(dict(level=lvl, batch=sat.shape[0],
+                             max_abs_err=abs_err, max_rel_err=rel_err))
+    return errs
+
+
 def phase_main_path(torch, dev):
     """S2GP serving at full width: ``Localizer(Config())`` predicts a window
     of seeded batches (K1 exactly 15 times per batch, no other kernel); the
@@ -1136,10 +1175,8 @@ def phase_main_path(torch, dev):
     plain version; the trajectory of the card against a CPU run at batch
     2."""
     from highlyaccurate_tpu_torch import Config
-    from highlyaccurate_tpu_torch.geometry.kitti import s2gp_uv_jac
     from highlyaccurate_tpu_torch.inference import Localizer
-    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP, banded_project
-    from highlyaccurate_tpu_torch.ops import banded_warp as bw
+    from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
 
     cfg = Config()
     t0 = time.perf_counter()
@@ -1156,30 +1193,7 @@ def phase_main_path(torch, dev):
         return model(s8, g8, mode="test", generator=gen)
 
     split = split_ms(torch, model, s8, g8, forward)
-    with torch.no_grad():
-        # first-round moments of every level, kernel vs plain, real features
-        sf, _, gf, _ = model.extract_features(s8, g8)
-        pose0 = torch.zeros(BATCH, 3, device=dev)
-        m_err = []
-        for lvl, slot in enumerate(model._slots):
-            A = sf[lvl].shape[1]
-            mask = getattr(model, f"mask_{slot}")
-            uv01, duv01 = s2gp_uv_jac(pose0, getattr(model, f"rows01_{slot}"),
-                                      A, cfg.rotation_range,
-                                      cfg.shift_range_lat, cfg.shift_range_lon)
-            H = gf[lvl].shape[1]
-            rows = gf[lvl][:, H // 2:].contiguous()
-            M, _, _ = banded_project(cfg, sf[lvl], uv01, duv01, mask, rows)
-            uv01s = uv01.flip(-1)
-            Mp = bw.banded_moments_reference(
-                sf[lvl].transpose(1, 2), rows, mask, uv01s[:, :, 0],
-                uv01s[:, :, 1], RB=bw.default_rb(A), bf16_map=True)
-            abs_err, rel_err, ok = moment_error(M, Mp)
-            if not ok:
-                fail(f"first-round moments disagree at level {lvl}: "
-                     f"{abs_err} abs, {rel_err} rel")
-            m_err.append(dict(level=lvl, max_abs_err=abs_err,
-                              max_rel_err=rel_err))
+    m_err = first_round_moments(torch, model, s8, g8, "S2GP serving")
     cpu = cpu_twin(LMS2GP, model)
     vs_cpu = traj_vs_cpu(
         torch, lambda: model(s8[:2], g8[:2], mode="trajectory",
@@ -1380,13 +1394,6 @@ def card_vs_cpu(torch, family, cfg, weights, batch, dev, loss_of,
         return dict(loss_rel_err=abs(loss - loss_c) / abs(loss_c),
                     **grad_errors(torch, grads, pg_c))
 
-    def tf32(fn):
-        torch.backends.cudnn.allow_tf32 = True
-        try:
-            return fn()
-        finally:
-            torch.backends.cudnn.allow_tf32 = False
-
     def nets_only():
         return grad_errors(torch, net_grads(torch, card, sat, grd, fg_c), pg_c)
 
@@ -1399,8 +1406,10 @@ def card_vs_cpu(torch, family, cfg, weights, batch, dev, loss_of,
                 rel_l2(g, r) for g, r in zip(grads, ref_grads)))
 
     row = dict(cpu_loss=loss_c, params_compared=len(pg_c), cpu_s=cpu_s,
-               end_to_end=end_to_end(), end_to_end_tf32=tf32(end_to_end),
-               nets_only=nets_only(), nets_only_tf32=tf32(nets_only))
+               end_to_end=end_to_end(),
+               end_to_end_tf32=tf32_convs(torch, end_to_end),
+               nets_only=nets_only(),
+               nets_only_tf32=tf32_convs(torch, nets_only))
     loss_s, fg_g, row["solver_only"] = solver_only(loss_c, fg_c)
     with plain_kernels():
         row["solver_only_kernels_vs_plain"] = solver_only(loss_s, fg_g)[2]
@@ -2054,14 +2063,14 @@ def counted_steps(torch, family, log, per_call=None):
             step = makers[kind](*a, **kw)
 
             def counted(*args):
-                before = {k: fn.launches for k, fn in _counters().items()}
+                before = launch_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out = step(*args)
                 torch.cuda.synchronize()
                 log[kind].append(time.perf_counter() - t0)
-                got = {k: fn.launches - before[k]
-                       for k, fn in _counters().items()}
+                got = {k: n - before[k]
+                       for k, n in launch_counts().items()}
                 per = (per_call[kind] if per_call is not None
                        else CLI_PER_CALL[family, kind])
                 want = {k: per.get(k, 0) for k in got}
@@ -2363,7 +2372,7 @@ for family in sys.argv[1:]:
     cs.reset_launches()
     out = srv.predict(d["sat"], d["grd"])
     torch.cuda.synchronize()
-    launches = {k: fn.launches for k, fn in cs._counters().items()}
+    launches = cs.launch_counts()
     np.savez(root + "_out.npz", **out)
     ms = []
     for _ in range(6):
@@ -3505,7 +3514,7 @@ def dp_step(torch, dev, mesh, seed=1, rows=None, shard=None):
     reset_launches()
     state, metrics = step(state, *batch, gen)
     torch.cuda.synchronize()
-    counts = {k: fn.launches for k, fn in _counters().items()}
+    counts = launch_counts()
     opt = state.optimizer
     out = dict(loss=metrics["loss"].cpu(), counts=counts, grads={},
                weights={}, adam={})
@@ -3750,6 +3759,207 @@ def phase_bench(torch, dev):
         fail(f"bench: extra.device {extra.get('device')} is not this card")
 
 
+# the bench's workloads that bench_paths profiles, and the batch of its
+# card-vs-CPU checks of bf16 serving and training (the CPU's share)
+BENCH_PROFILED = ("flagship", "bf16_b8_eval_fps", "fp32_eval_fps",
+                  "bf16_train_fps", "tracking_warm2_b1_latency_ms")
+BENCH_CHECK_BATCH = 2
+# card vs CPU on the bench's paths (see PERF.md section 6), limits on
+# (part, reading).  Round 1 and the bf16 step's loss sit between the
+# reading and a known perturbation (TF32 convolutions; for bf16, fp32
+# features): tracking round 1 read 1.1e-6 (TF32 1.9e-4), bf16 serving
+# round 1 1.0e-4 (fp32 features 5.7e-4), the bf16 loss 1.0e-3 relative
+# (fp32 features 9.5e-2).  The final poses pass through every round, which
+# amplify the frameworks' last bits about as far as the perturbations
+# (tracking 2.6e-4, TF32 5.7e-4; bf16 serving 9.7e-3, fp32 features
+# 1.4e-2), so their limits catch only a gross fault, such as a dropped
+# warm start (the poses reach 4.3e-2 and 5.6e-2)
+BENCH_TOL = {("tracking", "round1_max_abs"): ROUND1_TOL,
+             ("tracking", "round1_warm_max_abs"): ROUND1_TOL,
+             ("tracking", "pose_max_abs"): 1e-3,
+             ("bf16_serving", "round1_max_abs"): 2.5e-4,
+             ("bf16_serving", "pose_max_abs"): 2e-2,
+             ("bf16_train", "loss_rel_err"): 1e-2}
+
+
+def bench_profile(torch, bench, name, spec, w, dev):
+    """The bench's own reading of ``name`` in this process
+    (``bench.measure``: a warm-up call and its timed window, launch
+    counts checked), then one call under torch.profiler: device busy and
+    idle share, convolution device ms and the five device kernels that
+    take the most time."""
+    value = bench.measure(name, spec, w, dev)
+    call_ms = (value if spec.latency else 1e3 / value) * spec.batch
+    out = w.start
+
+    def one_call():
+        nonlocal out
+        out = w.call(0, w.start)
+
+    table = f"chiprun_out/profile_bench_{name}.txt"
+    reset_launches()
+    wall_ms, busy_ms, kernels, prof = profiled(torch, one_call, table)
+    expect_launches(f"bench_paths {name} profiled",
+                    {k: 2 * v for k, v in spec.launches.items()})
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(metric=name, value=value, call_ms=call_ms, wall_ms=wall_ms,
+                device_busy_ms=busy_ms,
+                device_idle_share=1 - busy_ms / wall_ms,
+                device_idle_share_unprofiled=1 - busy_ms / call_ms,
+                device_kernels=len(kernels),
+                conv_device_ms=conv_device_ms(
+                    prof, ("aten::cudnn_convolution",
+                           "aten::convolution_backward")),
+                top_kernels=[[k[:120], ms] for k, ms in top], table=table)
+
+
+def phase_bench_paths(torch, dev):
+    """The bench's paths that no other phase drives, built in this process
+    by ``bench.build`` (what its children time):
+    * K1 against its plain version on the first round's lines of the real
+      features at the headline's batch 32 (bf16 features) and the tracking
+      loop's batch 1 (``first_round_moments``);
+    * the tracking loop's two chained calls (each call's pose the next
+      one's ``init_pose``) against the same two calls on the CPU, and the
+      first round of each call from the same start on both sides (the
+      CPU's pose for the second), beside the card with TF32 convolutions;
+    * bf16 serving (the headline's config) and one bf16 train step's loss
+      at batch ``BENCH_CHECK_BATCH`` against the CPU, beside the card with
+      fp32 features, which a bf16 check must tell apart, and with TF32;
+    * each of ``BENCH_PROFILED``: its bench reading in this process and
+      one profiled call (``bench_profile``).
+    Each card call checks its kernel launches.  Fails beyond
+    ``BENCH_TOL``."""
+    from highlyaccurate_tpu_torch import bench
+
+    specs = bench.specs("cuda")
+    row = dict(phase="bench_paths", limits={
+        f"{part}.{key}": tol for (part, key), tol in BENCH_TOL.items()})
+
+    def cpu_weights(w):
+        return {k: v.cpu() for k, v in w.model.state_dict().items()}
+
+    def round1(w, init=None):
+        """The trajectory (every round) of a call of workload ``w`` from
+        ``init`` (numpy [B, 3]; None: pose 0)."""
+        dev_w = w.inputs[0].device
+        gen = torch.Generator(device=dev_w).manual_seed(0)
+        init = None if init is None else torch.from_numpy(init).to(dev_w)
+        return lambda: w.model(*w.inputs[:2], mode="trajectory",
+                               init_pose=init, generator=gen)
+
+    def traj_np(traj):
+        return torch.stack(traj, -1).cpu().numpy()
+
+    def calls(spec, n, device, weights=None, w=None):
+        """n chained calls of ``spec``'s workload (``w``, or one built on
+        ``device`` from ``weights``) -> numpy [n, B, 3] (evaluation) or [n]
+        (a train step's loss); on the card the launches are checked."""
+        w = w or bench.build(spec, device, state_dict=weights)
+        outs, out = [], w.start
+        reset_launches()
+        for i in range(n):
+            out = w.call(i, out)
+            outs.append(out.detach().cpu().numpy())
+        if device != "cpu":
+            expect_launches(f"bench_paths {n} calls", {
+                k: n * v for k, v in spec.launches.items()})
+        return np.stack(outs)
+
+    # the headline: K1 at batch 32 on bf16 features
+    spec = specs["flagship"]
+    w = bench.build(spec, dev)
+    row["k1_batch32_bf16"] = first_round_moments(torch, w.model,
+                                                 *w.inputs[:2],
+                                                 "bench flagship")
+    weights = cpu_weights(w)
+    del w
+    torch.cuda.empty_cache()
+
+    # bf16 serving at batch BENCH_CHECK_BATCH: card, CPU, fp32 features
+    small = dataclasses.replace(spec, batch=BENCH_CHECK_BATCH)
+    fp32 = dataclasses.replace(small, cfg=dataclasses.replace(
+        spec.cfg, compute_dtype="float32"))
+    wc = bench.build(small, "cpu", state_dict=weights)
+    w = bench.build(small, dev, state_dict=weights)
+    wf = bench.build(fp32, dev, state_dict=weights)
+    t0 = time.perf_counter()
+    pc = calls(small, 1, "cpu", w=wc)
+    cpu_s = time.perf_counter() - t0
+    pg = calls(small, 1, dev, w=w)
+    pf = calls(fp32, 1, dev, w=wf)
+    row["bf16_serving"] = dict(
+        traj_vs_cpu(torch, round1(w), round1(wc), float("inf"),
+                    "bench bf16 serving"),
+        round1_max_abs_fp32_features=float(np.abs(
+            traj_np(round1(wf)()) - traj_np(round1(wc)()))[:, 0, 0].max()),
+        cpu_s=cpu_s, pose_max_abs=float(np.abs(pg - pc).max()),
+        pose_max_abs_fp32_features=float(np.abs(pf - pc).max()),
+        pose_max_abs_value=float(np.abs(pc).max()))
+    del w, wf
+    torch.cuda.empty_cache()
+
+    # one bf16 train step's loss at batch BENCH_CHECK_BATCH
+    spec = dataclasses.replace(specs["bf16_train_fps"],
+                               batch=BENCH_CHECK_BATCH)
+    fp32 = dataclasses.replace(spec, cfg=dataclasses.replace(
+        spec.cfg, compute_dtype="float32"))
+    t0 = time.perf_counter()
+    lc = float(calls(spec, 1, "cpu", weights)[0])
+    cpu_s = time.perf_counter() - t0
+    lg = float(calls(spec, 1, dev, weights)[0])
+    lt = float(tf32_convs(torch, lambda: calls(spec, 1, dev, weights))[0])
+    lf = float(calls(fp32, 1, dev, weights)[0])
+    row["bf16_train"] = dict(
+        batch=BENCH_CHECK_BATCH, cpu_s=cpu_s, cpu_loss=lc,
+        loss_rel_err=abs(lg - lc) / abs(lc),
+        loss_rel_err_tf32_convs=abs(lt - lc) / abs(lc),
+        loss_rel_err_fp32_features=abs(lf - lc) / abs(lc))
+    torch.cuda.empty_cache()
+
+    # the tracking loop at batch 1: K1, and two chained calls vs the CPU
+    spec = specs["tracking_warm2_b1_latency_ms"]
+    w = bench.build(spec, dev)
+    row["k1_batch1_fp32"] = first_round_moments(torch, w.model,
+                                                *w.inputs[:2],
+                                                "bench tracking")
+    wc = bench.build(spec, "cpu", state_dict=cpu_weights(w))
+    t0 = time.perf_counter()
+    tc = calls(spec, 2, "cpu", w=wc)
+    cpu_s = time.perf_counter() - t0
+    tg = calls(spec, 2, dev, w=w)
+    tt = tf32_convs(torch, lambda: calls(spec, 2, dev, w=w))
+    # the second call's rounds from the CPU's first pose on both sides:
+    # the warm start on the same input
+    warm = traj_vs_cpu(torch, round1(w, tc[0]), round1(wc, tc[0]),
+                       float("inf"), "bench tracking warm")
+    row["tracking"] = dict(
+        traj_vs_cpu(torch, round1(w), round1(wc), float("inf"),
+                    "bench tracking"),
+        round1_warm_max_abs=warm["round1_max_abs"],
+        round1_warm_max_abs_tf32_convs=warm["round1_max_abs_tf32_convs"],
+        calls=2, cpu_s=cpu_s, pose_max_abs=float(np.abs(tg - tc).max()),
+        pose_max_abs_per_call=np.abs(tg - tc).max(axis=(1, 2)).tolist(),
+        pose_max_abs_tf32_convs=float(np.abs(tt - tc).max()),
+        pose_max_abs_value=float(np.abs(tc).max()))
+    del w
+    torch.cuda.empty_cache()
+
+    row["profiles"] = []
+    for name in BENCH_PROFILED:
+        spec = specs[name]
+        w = bench.build(spec, dev)
+        row["profiles"].append(bench_profile(torch, bench, name, spec, w,
+                                             dev))
+        del w
+        torch.cuda.empty_cache()
+    emit(row)
+    check_limits("bench_paths", row, BENCH_TOL)
+
+
 def kernel_entry(name, source, replaces, launches, rows):
     """One kernel's entry of the kernels line, summed over its shapes."""
     return dict(
@@ -3789,6 +3999,7 @@ def main():
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               libraries={k: os.path.relpath(v) for k, v in libs.items()},
               ptxas={k: ptxas_lines(_build.build_log(k)) for k in libs}))
+    phase_bench(torch, dev)  # before this process allocates on the card
 
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     shapes = phase_kernels(torch, dev, flush)
@@ -3881,7 +4092,7 @@ def main():
     torch.cuda.empty_cache()
     phase_data_parallel(torch, dev)
     torch.cuda.empty_cache()
-    phase_bench(torch, dev)
+    phase_bench_paths(torch, dev)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
     # library_ms is null for all six: no single PyTorch call computes
@@ -3966,11 +4177,11 @@ def ab_turns(flag, parent):
                           turn=turn))
 
 
-def phase_alone(phase, *args):
+def phase_alone(phases, *args):
     """``python3 chip_smoke.py --serving-api``, ``--solver-options [NAME
     ...]``, ``--proj-options [NAME ...]``, ``--corr-heads``,
-    ``--data-parallel`` or ``--bench``: the kernels' build and that phase
-    alone."""
+    ``--data-parallel`` or ``--bench``: the kernels' build and those
+    phases alone, each given ``args``."""
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -3979,24 +4190,25 @@ def phase_alone(phase, *args):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     print(f"gpu: {gpu_line()}", flush=True)
-    phase(torch, torch.device("cuda", 0), *args)
+    for phase in phases:
+        phase(torch, torch.device("cuda", 0), *args)
 
 
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] in AB_RUNS:
         ab_turns(sys.argv[1], os.path.abspath(sys.argv[2]))
     elif sys.argv[1:] == ["--serving-api"]:
-        phase_alone(phase_serving_api)
+        phase_alone((phase_serving_api,))
     elif sys.argv[1:2] == ["--solver-options"]:
-        phase_alone(phase_solver_options, sys.argv[2:])
+        phase_alone((phase_solver_options,), sys.argv[2:])
     elif sys.argv[1:2] == ["--proj-options"]:
-        phase_alone(phase_proj_options, sys.argv[2:])
+        phase_alone((phase_proj_options,), sys.argv[2:])
     elif sys.argv[1:] == ["--corr-heads"]:
-        phase_alone(phase_corr_heads)
+        phase_alone((phase_corr_heads,))
     elif sys.argv[1:] == ["--data-parallel"]:
-        phase_alone(phase_data_parallel)
+        phase_alone((phase_data_parallel,))
     elif sys.argv[1:] == ["--bench"]:
-        phase_alone(phase_bench)
+        phase_alone((phase_bench, phase_bench_paths))
     elif sys.argv[1:2] == ["--dp-worker"] and len(sys.argv) == 6:
         dp_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4],
                   sys.argv[5])

@@ -236,11 +236,9 @@ def _window(name: str, spec: Spec, w: Workload, seeds, device) -> float:
     fed the previous call's return; fails unless every kernel launched as
     ``spec`` says per call (on the CPU: none) and the last return is
     finite."""
-    from highlyaccurate_tpu_torch.ops import launch_counters
+    from highlyaccurate_tpu_torch import ops
 
-    counters = launch_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    ops.reset_launches()
     sync = (torch.cuda.synchronize if device.type == "cuda"
             else (lambda: None))
     sync()
@@ -251,11 +249,8 @@ def _window(name: str, spec: Spec, w: Workload, seeds, device) -> float:
     sync()
     seconds = time.perf_counter() - t0
     per_call = spec.launches if device.type == "cuda" else {}
-    got = {k: fn.launches for k, fn in counters.items()}
-    want = {k: per_call.get(k, 0) * len(seeds) for k in counters}
-    if got != want:
-        raise RuntimeError(f"{name}: {len(seeds)} calls launched the "
-                           f"kernels {got} times, expected {want}")
+    ops.expect_launches(f"{name}: {len(seeds)} calls",
+                        {k: v * len(seeds) for k, v in per_call.items()})
     if not bool(torch.isfinite(out).all()):
         raise RuntimeError(f"{name}: non-finite output {out}")
     return seconds
@@ -329,13 +324,22 @@ def _run_child(metric: str, timeout_s: float, device_args: list):
                   + (f" ({last[0].strip()[:300]})" if last else ""))
 
 
+def smi_index() -> str:
+    """``nvidia-smi -i``'s name for the card the children see as device 0:
+    the first entry of ``CUDA_VISIBLE_DEVICES`` (an index or a UUID) where
+    it is set, else 0 (nvidia-smi itself ignores that variable)."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES", "").split(",")[0]
+    return visible.strip() or "0"
+
+
 def device_info(device: torch.device) -> dict:
-    """{"name", "power_limit"} of card 0 as ``nvidia-smi`` reports them
-    (no CUDA context); the host CPU has no power limit to report."""
+    """{"name", "power_limit"} of the children's card as ``nvidia-smi``
+    reports them (no CUDA context); the host CPU has no power limit to
+    report."""
     if device.type == "cpu":
         return {"name": "cpu", "power_limit": None}
     out = subprocess.run(
-        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+        ["nvidia-smi", "-i", smi_index(), "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip()
     name, limit = (s.strip() for s in out.rsplit(",", 1))

@@ -2,7 +2,8 @@
 
 ``launch_counters`` names each kernel's wrapper by its id; a wrapper's
 ``launches`` attribute counts the launches of its CUDA kernel (never its
-plain version's runs on the CPU).
+plain version's runs on the CPU).  ``reset_launches``, ``launch_counts``
+and ``expect_launches`` are the one place that reads and checks them.
 """
 
 
@@ -15,3 +16,26 @@ def launch_counters() -> dict:
             "k3": bw.banded_sample_backward,
             "k4": tpl.projline_sample_forward,
             "k5": tpl.projline_sample_backward, "k6": tpl.projline_pixmom}
+
+
+def reset_launches() -> None:
+    """Set every kernel's launch count to 0."""
+    for fn in launch_counters().values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    """{"k1": n, ..., "k6": n}: each kernel's launches so far."""
+    return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def expect_launches(what: str, expected: dict) -> dict:
+    """Every kernel's launch count since ``reset_launches``; raises
+    ``RuntimeError`` unless the kernels in ``expected`` launched exactly
+    that often and the others never."""
+    got = launch_counts()
+    want = {k: expected.get(k, 0) for k in got}
+    if got != want:
+        raise RuntimeError(f"{what} launched the kernels {got} times, "
+                           f"expected {want}")
+    return got

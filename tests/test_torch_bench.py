@@ -43,7 +43,7 @@ from highlyaccurate_tpu.models.lm_g2sp import LMG2SP as JLMG2SP
 from highlyaccurate_tpu.models.lm_s2gp import LMS2GP as JLMS2GP
 from highlyaccurate_tpu.train import step as jstep
 from highlyaccurate_tpu.train.state import create_train_state
-from highlyaccurate_tpu_torch import bench
+from highlyaccurate_tpu_torch import bench, ops
 from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
 from highlyaccurate_tpu_torch.params import state_dict_from_jax
 from _torch_threads import one_torch_thread  # noqa: F401 (autouse)
@@ -131,6 +131,36 @@ def test_no_card_runs_nothing():
     assert "batch 32" in d["metric"]
     assert set(d["extra"]) == {"train_fps", "batch1_latency_ms"}
     assert all(v.startswith("error: not run") for v in d["extra"].values())
+
+
+@pytest.mark.parametrize("visible,want", [
+    (None, "0"), ("", "0"), ("3", "3"), ("GPU-5f1c,1", "GPU-5f1c"),
+    (" 2 ,5", "2")], ids=["unset", "empty", "index", "uuid", "spaces"])
+def test_device_info_names_the_visible_card(monkeypatch, visible, want):
+    """``extra.device`` queries the card the children see as device 0."""
+    if visible is None:
+        monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    else:
+        monkeypatch.setenv("CUDA_VISIBLE_DEVICES", visible)
+    assert bench.smi_index() == want
+
+
+def test_expect_launches_checks_every_kernel():
+    """The launch rule the bench's children and chip_smoke.py share: the
+    kernels named launched exactly that often, every other one never."""
+    counters = ops.launch_counters()
+    assert set(counters) == {"k1", "k2", "k3", "k4", "k5", "k6"}
+    try:
+        ops.reset_launches()
+        assert ops.launch_counts() == dict.fromkeys(counters, 0)
+        assert ops.expect_launches("none", {}) == dict.fromkeys(counters, 0)
+        counters["k1"].launches = 15
+        assert ops.expect_launches("k1", {"k1": 15})["k1"] == 15
+        for wrong in ({}, {"k1": 14}, {"k1": 15, "k2": 15}):
+            with pytest.raises(RuntimeError, match="launched the kernels"):
+                ops.expect_launches("k1", wrong)
+    finally:
+        ops.reset_launches()
 
 
 @pytest.mark.parametrize("gpu", [True, False], ids=["cuda", "cpu"])
