@@ -61,6 +61,7 @@ from highlyaccurate_tpu_torch.geometry.ford import sample_layouts
 from highlyaccurate_tpu_torch.solver.updates import uniform_draws
 from highlyaccurate_tpu_torch.train.step import eval_batch_pad
 from highlyaccurate_tpu_torch.utils.device import resolve_device
+from highlyaccurate_tpu_torch.utils.profiling import span
 
 _EXPORT_FORMAT = "highlyaccurate_tpu_torch.localizer/1"
 
@@ -154,6 +155,7 @@ class Localizer:
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
         self._steps = {}
+        self._calls = 0          # predict calls, the spans' sequence number
 
     def _get_step(self, warm: bool, info: bool):
         """The eval step of the (warm_start, with_info) variant, made
@@ -195,36 +197,48 @@ class Localizer:
         covariance ranks uncertainty but is optimistic in scale when
         residuals correlate: an uncalibrated Localizer warns.
         """
+        with span("hat.predict", self._calls):
+            self._calls += 1
+            return self._predict(sat_imgs, grd_imgs, R_FL, T_FL, camera_k,
+                                 init_pose, return_cov)
+
+    def _predict(self, sat_imgs, grd_imgs, R_FL, T_FL, camera_k, init_pose,
+                 return_cov: bool) -> dict:
         cfg = self.cfg
         ranges = (cfg.shift_range_lat, cfg.shift_range_lon,
                   cfg.rotation_range)
-        sat_imgs = np.asarray(sat_imgs)
-        n = sat_imgs.shape[0]
-        extras = _per_image_extras(n, self._ford, self._g2sp, self._ford_R,
-                                   self._ford_T, self._camera_k, R_FL, T_FL,
-                                   camera_k)
-        warm = init_pose is not None
-        if warm:
-            extras["_init_pose"] = _init_to_normalized(init_pose, n,
-                                                       self._ford, ranges)
-        step = self._get_step(warm, return_cov)
+        with span("hat.predict.stage"):
+            sat_imgs = np.asarray(sat_imgs)
+            n = sat_imgs.shape[0]
+            extras = _per_image_extras(n, self._ford, self._g2sp,
+                                       self._ford_R, self._ford_T,
+                                       self._camera_k, R_FL, T_FL, camera_k)
+            warm = init_pose is not None
+            if warm:
+                extras["_init_pose"] = _init_to_normalized(
+                    init_pose, n, self._ford, ranges)
+            step = self._get_step(warm, return_cov)
+            sizes = [eval_batch_pad(self.batch_size, self._mesh)]
+            swap = (sample_layouts(extras["R_FL"])
+                    if self._ford and not self.model._gather else None)
         dev = self.device
 
         def run(sb, gb, eb):
-            args = [_to_device(sb, dev), _to_device(gb, dev)]
-            if self._ford:
-                # the rig goes on the host: the model reads its layout there
-                args += [torch.from_numpy(np.ascontiguousarray(eb[k]))
-                         for k in ("R_FL", "T_FL")]
-            elif self._g2sp:
-                args.append(_to_device(eb["camera_k"], dev))
-            if warm:
-                args.append(_to_device(eb["_init_pose"], dev))
-            return [t.cpu().numpy() for t in step(*args, self._generator)]
+            with span("hat.predict.h2d"):
+                args = [_to_device(sb, dev), _to_device(gb, dev)]
+                if self._ford:
+                    # the rig goes on the host: the model reads its layout
+                    # there
+                    args += [torch.from_numpy(np.ascontiguousarray(eb[k]))
+                             for k in ("R_FL", "T_FL")]
+                elif self._g2sp:
+                    args.append(_to_device(eb["camera_k"], dev))
+                if warm:
+                    args.append(_to_device(eb["_init_pose"], dev))
+            outs = step(*args, self._generator)
+            with span("hat.predict.readback"):
+                return [t.cpu().numpy() for t in outs]
 
-        sizes = [eval_batch_pad(self.batch_size, self._mesh)]
-        swap = (sample_layouts(extras["R_FL"])
-                if self._ford and not self.model._gather else None)
         if swap is not None and swap.any() != swap.all():
             # one launch takes one kernel layout: serve each apart
             grd_imgs, out = np.asarray(grd_imgs), {}
@@ -247,9 +261,10 @@ class Localizer:
                     "synthetic tracking study measured ~5000x). Fit the "
                     "scale with Localizer.calibrate(validation_batches) or "
                     "pass cov_scale= before fusing 'cov' in a filter.",
-                    stacklevel=2)
-            out["cov"] = _cov_to_metric(out["cov"], self._ford,
-                                        ranges) * self.cov_scale
+                    stacklevel=3)
+            with span("hat.predict.finish"):
+                out["cov"] = _cov_to_metric(out["cov"], self._ford,
+                                            ranges) * self.cov_scale
         return out
 
     def calibrate(self, batches, dof_mask=None) -> float:
@@ -444,6 +459,7 @@ class ExportedLocalizer:
                           for bs, blob in blobs.items()}
         self._generator = torch.Generator(device=self.device)
         self._generator.manual_seed(seed)
+        self._calls = 0
 
     def predict(self, sat_imgs, grd_imgs, R_FL=None, T_FL=None,
                 camera_k=None, init_pose=None) -> dict:
@@ -452,51 +468,64 @@ class ExportedLocalizer:
         from zero); a ``return_cov=True`` artifact always returns
         ``"cov"``; a Ford rig whose kernel layout (``sample_layouts``)
         differs from the exporting rig's raises ``ValueError``."""
+        with span("hat.predict", self._calls):
+            self._calls += 1
+            return self._predict(sat_imgs, grd_imgs, R_FL, T_FL, camera_k,
+                                 init_pose)
+
+    def _predict(self, sat_imgs, grd_imgs, R_FL, T_FL, camera_k,
+                 init_pose) -> dict:
         meta = self.meta
         ranges = (meta["shift_range_lat"], meta["shift_range_lon"],
                   meta["rotation_range"])
-        sat_imgs = np.asarray(sat_imgs)
-        n = sat_imgs.shape[0]
-        extras = _per_image_extras(n, self._ford, self._g2sp, self._ford_R,
-                                   self._ford_T, self._camera_k, R_FL, T_FL,
-                                   camera_k)
-        layout = meta["ford_layout"]
-        if layout is not None and not (sample_layouts(extras["R_FL"])
-                                       == layout).all():
-            raise ValueError("a rig of this call takes the other banded "
-                             "kernel layout than the exported program's "
-                             f"(swap={layout}); export from a Localizer "
-                             "with such a rig")
-        if init_pose is not None and not self._warm:
-            raise ValueError("this artifact was exported without "
-                             "warm_start=True; it has no init_pose input")
-        if self._warm:
-            extras["_init_pose"] = (
-                np.zeros((n, 3), np.float32) if init_pose is None
-                else _init_to_normalized(init_pose, n, self._ford, ranges))
+        with span("hat.predict.stage"):
+            sat_imgs = np.asarray(sat_imgs)
+            n = sat_imgs.shape[0]
+            extras = _per_image_extras(n, self._ford, self._g2sp,
+                                       self._ford_R, self._ford_T,
+                                       self._camera_k, R_FL, T_FL, camera_k)
+            layout = meta["ford_layout"]
+            if layout is not None and not (sample_layouts(extras["R_FL"])
+                                           == layout).all():
+                raise ValueError("a rig of this call takes the other banded "
+                                 "kernel layout than the exported program's "
+                                 f"(swap={layout}); export from a Localizer "
+                                 "with such a rig")
+            if init_pose is not None and not self._warm:
+                raise ValueError("this artifact was exported without "
+                                 "warm_start=True; it has no init_pose "
+                                 "input")
+            if self._warm:
+                extras["_init_pose"] = (
+                    np.zeros((n, 3), np.float32) if init_pose is None
+                    else _init_to_normalized(init_pose, n, self._ford,
+                                             ranges))
         dev = self.device
 
         def run(sb, gb, eb):
             bs = sb.shape[0]
-            args = [_to_device(sb, dev), _to_device(gb, dev)]
-            args += [_to_device(eb[k], dev) for k in
-                     (("R_FL", "T_FL") if self._ford else
-                      ("camera_k",) if self._g2sp else ())]
-            if self._warm:
-                args.append(_to_device(eb["_init_pose"], dev))
+            with span("hat.predict.h2d"):
+                args = [_to_device(sb, dev), _to_device(gb, dev)]
+                args += [_to_device(eb[k], dev) for k in
+                         (("R_FL", "T_FL") if self._ford else
+                          ("camera_k",) if self._g2sp else ())]
+                if self._warm:
+                    args.append(_to_device(eb["_init_pose"], dev))
             n_draws = (meta["draws_per_image"] * bs
                        + meta["draws_per_batch"])
             args.append(uniform_draws(self._generator, (n_draws,), dev)
                         if n_draws else torch.zeros(0, device=dev))
             with torch.no_grad():
                 outs = self._programs[bs](*args)
-            return [t.cpu().numpy() for t in outs]
+            with span("hat.predict.readback"):
+                return [t.cpu().numpy() for t in outs]
 
         out = _batched_predict(run, sat_imgs, grd_imgs, self.batch_sizes,
                                ranges, extras, self._cov)
         if self._cov:
-            out["cov"] = (_cov_to_metric(out["cov"], self._ford, ranges)
-                          * float(meta["cov_scale"]))
+            with span("hat.predict.finish"):
+                out["cov"] = (_cov_to_metric(out["cov"], self._ford, ranges)
+                              * float(meta["cov_scale"]))
         return out
 
 
@@ -609,15 +638,18 @@ def _batched_predict(run, sat_imgs, grd_imgs, sizes, ranges, extras,
     max_bs = sizes[-1]
     parts = []
     for i in range(0, n, max_bs):
-        chunk = min(max_bs, n - i)
-        bs = next(s for s in sizes if s >= chunk)
-        sb = pad_to(sat[i:i + chunk], bs)
-        gb = pad_to(grd[i:i + chunk], bs)
-        eb = {k: pad_to(v[i:i + chunk], bs) for k, v in extras.items()}
+        with span("hat.predict.stage"):
+            chunk = min(max_bs, n - i)
+            bs = next(s for s in sizes if s >= chunk)
+            sb = pad_to(sat[i:i + chunk], bs)
+            gb = pad_to(grd[i:i + chunk], bs)
+            eb = {k: pad_to(v[i:i + chunk], bs) for k, v in extras.items()}
         parts.append([o[:chunk] for o in run(sb, gb, eb)])
-    lat, lon, th, *cov = (np.concatenate(p) for p in zip(*parts))
-    out = {"lateral_m": lat * ranges[0], "longitudinal_m": lon * ranges[1],
-           "heading_deg": th * ranges[2]}
+    with span("hat.predict.finish"):
+        lat, lon, th, *cov = (np.concatenate(p) for p in zip(*parts))
+        out = {"lateral_m": lat * ranges[0],
+               "longitudinal_m": lon * ranges[1],
+               "heading_deg": th * ranges[2]}
     if with_cov:
         out["cov"] = cov[0]
     return out

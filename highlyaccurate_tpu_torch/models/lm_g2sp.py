@@ -85,7 +85,8 @@ from highlyaccurate_tpu_torch.config import Config
 from highlyaccurate_tpu_torch.geometry import kitti as geom
 from highlyaccurate_tpu_torch.losses.losses import (loss_func,
                                                    soft_margin_triplet)
-from highlyaccurate_tpu_torch.models.lm_s2gp import (_level_hw,
+from highlyaccurate_tpu_torch.models.lm_s2gp import (ROUND_SPANS,
+                                                    _level_hw,
                                                     feature_dtype,
                                                     multi_starts,
                                                     normalized_cost)
@@ -106,6 +107,7 @@ from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
                                                      pose_covariance)
 from highlyaccurate_tpu_torch.utils import geo as geo_utils
 from highlyaccurate_tpu_torch.utils.device import resolve_device
+from highlyaccurate_tpu_torch.utils.profiling import span
 
 SLOT_CHANNELS = (256, 128, 64, 16)  # VGGUnet feature channels per slot
 
@@ -204,8 +206,9 @@ class LMG2SP(nn.Module):
         return self.damping.device
 
     def extract_features(self, sat_map, grd_img):
-        sat_feats, sat_confs = self.SatFeatureNet(sat_map)
-        grd_feats, grd_confs = self.GrdFeatureNet(grd_img)
+        with span("hat.features"):
+            sat_feats, sat_confs = self.SatFeatureNet(sat_map)
+            grd_feats, grd_confs = self.GrdFeatureNet(grd_img)
         return sat_feats, sat_confs, grd_feats, grd_confs
 
     def corr(self, sat_map, grd_img, camera_k, gt_pose=None,
@@ -409,29 +412,32 @@ class LMG2SP(nn.Module):
         """Iteration-first (iteration x level) loop -> [B, N_iters, L, 3]
         (G2SP has no ``level_first``, as in JAX); grd_confs: the ground
         confidence pyramid, read with ``using_weight``."""
-        cfg = self.cfg
-        maps, targets = [], []
-        for lvl, slot in enumerate(self._slots):
-            # constant across rounds: the projective-line eval map cast and
-            # the targets, read in float32 (a no-op unless the features are
-            # bf16)
-            projline = self._projline[slot]
-            maps.append(grd_feats[lvl].to(torch.bfloat16)
-                        if projline and not train else grd_feats[lvl])
-            sat = sat_feats[lvl].to(torch.float32)
-            j0 = self._col_start[slot]
-            targets.append(sat[:, :, j0:].transpose(1, 2)
-                           if projline or (self._implicit and not self._nn)
-                           else sat)
-        pose, traj = pose0, []
-        for _ in range(cfg.N_iters):
+        with span("hat.solver"):
+            cfg = self.cfg
+            maps, targets = [], []
             for lvl, slot in enumerate(self._slots):
-                pose = self._solver_round(
-                    pose, slot, maps[lvl], targets[lvl], camera_k, train,
-                    grd_confs[lvl] if cfg.using_weight else None)
-                traj.append(pose)
-        return torch.stack(traj, dim=1).reshape(pose0.shape[0], cfg.N_iters,
-                                                len(self._slots), 3)
+                # constant across rounds: the projective-line eval map cast
+                # and the targets, read in float32 (a no-op unless the
+                # features are bf16)
+                projline = self._projline[slot]
+                maps.append(grd_feats[lvl].to(torch.bfloat16)
+                            if projline and not train else grd_feats[lvl])
+                sat = sat_feats[lvl].to(torch.float32)
+                j0 = self._col_start[slot]
+                targets.append(sat[:, :, j0:].transpose(1, 2)
+                               if projline or (self._implicit and not self._nn)
+                               else sat)
+            pose, traj = pose0, []
+            for _ in range(cfg.N_iters):
+                for lvl, slot in enumerate(self._slots):
+                    with span(ROUND_SPANS[lvl]):
+                        pose = self._solver_round(
+                            pose, slot, maps[lvl], targets[lvl], camera_k,
+                            train,
+                            grd_confs[lvl] if cfg.using_weight else None)
+                    traj.append(pose)
+            return torch.stack(traj, dim=1).reshape(
+                pose0.shape[0], cfg.N_iters, len(self._slots), 3)
 
     def forward(self, sat_map, grd_img, camera_k, mode: str = "test",
                 init_pose: Optional[torch.Tensor] = None, *,

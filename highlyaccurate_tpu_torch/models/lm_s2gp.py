@@ -87,6 +87,7 @@ from highlyaccurate_tpu_torch.solver.updates import (
     sgd_update, uniform_draws)
 from highlyaccurate_tpu_torch.utils import geo as geo_utils
 from highlyaccurate_tpu_torch.utils.device import resolve_device
+from highlyaccurate_tpu_torch.utils.profiling import span
 
 
 def check_supported(cfg: Config):
@@ -306,6 +307,11 @@ def eval_draws_per_batch(cfg: Config) -> int:
     return cfg.N_iters * sum(kept)
 
 
+# the span of a solver round at each level index (0 coarse ... L-1 fine)
+ROUND_SPANS = tuple(f"hat.solver.round.l{k}" for k in
+                    range(max(map(len, LEVEL_SLOTS.values()))))
+
+
 def round_order(cfg: Config):
     """The (iteration, level index) of each round in the order they run:
     iteration-major, or with ``level_first`` every iteration of a level
@@ -389,7 +395,9 @@ class S2GPBase(nn.Module):
     def extract_features(self, sat_map, grd_img):
         """(sat_feats, sat_confs, grd_feats, grd_confs[, grd_depths]): the
         depths where the ground branch estimates them."""
-        return (*self.SatFeatureNet(sat_map), *self.GrdFeatureNet(grd_img))
+        with span("hat.features"):
+            return (*self.SatFeatureNet(sat_map),
+                    *self.GrdFeatureNet(grd_img))
 
     def _features(self, sat_map, grd_img, gt_depth=None):
         """The forward's inputs to the rounds: (sat_feats, grd_feats,
@@ -550,38 +558,40 @@ class S2GPBase(nn.Module):
         (read with ``using_weight``); ``aux``: a dict of one list per level
         index, which each round of the level fills (``_solver_round``);
         ``lifts``: the per-level per-sample rays (``_lifts``) or None."""
-        cfg = self.cfg
-        # constant across rounds: K1's map cast (the banded sampler casts
-        # inside its autograd function, the gather sampler reads the
-        # features in their own dtype), the kept target rows and their
-        # confidence, which the updates read in float32 (JAX's K1 wrapper
-        # casts them too)
-        map_dtype = (torch.bfloat16 if bf16_map(cfg)
-                     and self._fused_eval(train) else torch.float32)
-        sats, grds, confs = [], [], []
-        for lvl in range(len(self._slots)):
-            sats.append(sat_feats[lvl] if self._gather
-                        else sat_feats[lvl].to(map_dtype))
-            half = row_start(cfg, grd_feats[lvl].shape[1])
-            grds.append(grd_feats[lvl][:, half:].to(torch.float32)
-                        .contiguous())
-            confs.append(grd_confs[lvl][:, half:].to(torch.float32)
-                         if cfg.using_weight else None)
-        B, n = pose0.shape[0], len(self.lm_cfg.active_dims)
-        adam = [torch.zeros(B, n, device=pose0.device)] * 2
-        pose, traj = pose0, []
-        for t, (it, lvl) in enumerate(round_order(cfg)):
-            pose = self._solver_round(
-                pose, self._slots[lvl], sats[lvl], grds[lvl], generator,
-                train, geo, confs[lvl], t, adam,
-                None if aux is None else aux[lvl],
-                None if lifts is None else lifts[lvl])
-            traj.append(pose)
-        traj = torch.stack(traj, dim=1)
-        L = len(self._slots)
-        if cfg.level_first:
-            return traj.reshape(B, L, cfg.N_iters, 3).transpose(1, 2)
-        return traj.reshape(B, cfg.N_iters, L, 3)
+        with span("hat.solver"):
+            cfg = self.cfg
+            # constant across rounds: K1's map cast (the banded sampler
+            # casts inside its autograd function, the gather sampler reads
+            # the features in their own dtype), the kept target rows and
+            # their confidence, which the updates read in float32 (JAX's K1
+            # wrapper casts them too)
+            map_dtype = (torch.bfloat16 if bf16_map(cfg)
+                         and self._fused_eval(train) else torch.float32)
+            sats, grds, confs = [], [], []
+            for lvl in range(len(self._slots)):
+                sats.append(sat_feats[lvl] if self._gather
+                            else sat_feats[lvl].to(map_dtype))
+                half = row_start(cfg, grd_feats[lvl].shape[1])
+                grds.append(grd_feats[lvl][:, half:].to(torch.float32)
+                            .contiguous())
+                confs.append(grd_confs[lvl][:, half:].to(torch.float32)
+                             if cfg.using_weight else None)
+            B, n = pose0.shape[0], len(self.lm_cfg.active_dims)
+            adam = [torch.zeros(B, n, device=pose0.device)] * 2
+            pose, traj = pose0, []
+            for t, (it, lvl) in enumerate(round_order(cfg)):
+                with span(ROUND_SPANS[lvl]):
+                    pose = self._solver_round(
+                        pose, self._slots[lvl], sats[lvl], grds[lvl],
+                        generator, train, geo, confs[lvl], t, adam,
+                        None if aux is None else aux[lvl],
+                        None if lifts is None else lifts[lvl])
+                traj.append(pose)
+            traj = torch.stack(traj, dim=1)
+            L = len(self._slots)
+            if cfg.level_first:
+                return traj.reshape(B, L, cfg.N_iters, 3).transpose(1, 2)
+            return traj.reshape(B, cfg.N_iters, L, 3)
 
     def hypotheses(self, sat_feats, grd_feats, init_pose, generator,
                    geo: tuple = (), grd_confs=None, lifts=None):

@@ -61,6 +61,7 @@ from highlyaccurate_tpu_torch.solver.updates import (PresetDraws,
                                                      uniform_draws)
 from highlyaccurate_tpu_torch.train import distributed
 from highlyaccurate_tpu_torch.train.state import TrainState
+from highlyaccurate_tpu_torch.utils.profiling import span
 
 METRICS = ("loss_decrease", "shift_lat_decrease", "shift_lon_decrease",
            "thetas_decrease", "loss_last", "shift_lat_last", "shift_lon_last",
@@ -277,19 +278,25 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
                                           mesh.index)
         opt = state.optimizer
         opt.zero_grad(set_to_none=True)
-        out = model(sat, grd, *args, mode="train", gt_pose=gt_pose, **fwd)
-        out.loss.backward()
-        for p in frozen:
-            p.grad = torch.zeros_like(p)
-        metrics = {"loss": out.loss.detach()}
-        metrics.update((k, getattr(out, k).detach()) for k in METRICS)
-        if mesh is not None and mesh.ranks:
-            params = [p for p in model.parameters() if p.grad is not None]
-            for p, g in zip(params, _average(mesh, [p.grad for p in params])):
-                p.grad = g
-            metrics = dict(zip(metrics, _average(mesh, list(
-                metrics.values()))))
-        opt.step()
+        with span("hat.train.forward"):
+            out = model(sat, grd, *args, mode="train", gt_pose=gt_pose,
+                        **fwd)
+        with span("hat.train.backward"):
+            out.loss.backward()
+        with span("hat.train.optimizer"):
+            for p in frozen:
+                p.grad = torch.zeros_like(p)
+            metrics = {"loss": out.loss.detach()}
+            metrics.update((k, getattr(out, k).detach()) for k in METRICS)
+            if mesh is not None and mesh.ranks:
+                params = [p for p in model.parameters()
+                          if p.grad is not None]
+                grads = _average(mesh, [p.grad for p in params])
+                for p, g in zip(params, grads):
+                    p.grad = g
+                metrics = dict(zip(metrics, _average(mesh, list(
+                    metrics.values()))))
+            opt.step()
         return dataclasses.replace(state, step=state.step + 1), metrics
 
     return step

@@ -352,21 +352,3 @@ def test_project_at_pose_matches_jax(case):
             np.testing.assert_allclose(g.numpy(), w, rtol=0,
                                        atol=PROJECT_ATOL)
         assert np.abs(np.asarray(w_lvl[2])).max() > 0  # the map is hit
-
-
-def test_phase_timer_and_memory_stats():
-    from highlyaccurate_tpu_torch.utils.profiling import (PhaseTimer,
-                                                          device_memory_stats)
-    timer = PhaseTimer(sync=False)
-    for _ in range(3):
-        with timer.phase("a"):
-            pass
-    with timer.phase("b"):
-        pass
-    assert timer.counts == {"a": 3, "b": 1}
-    assert timer.summary().splitlines()[0].startswith("a: total ")
-    stats = device_memory_stats()
-    if not torch.cuda.is_available():
-        assert stats == {}
-    else:
-        assert "allocated_bytes.all.current" in stats["cuda:0"]
