@@ -11,11 +11,11 @@ bench's children have the whole card, then:
    (``banded_sample_backward``) at each flagship launch shape (KITTI S2GP,
    512x512 satellite, 256x1024 ground, level=3, batch 8, bf16 map), lines
    from ``s2gp_uv_jac`` at random in-range poses; and K4
-   (``projline_sample_forward``), K5 (``projline_sample_backward``) and K6
-   (``projline_pixmom``) at each flagship G2SP level, lines from
-   ``g2sp_P`` with the default K.
-   Each against its plain PyTorch version on the card (K1, K3, K5 and K6
-   also launched a second time: ``repeatable`` when the bits agree; K5's
+   (``projline_sample_forward``), K5 (``projline_sample_backward``), K6
+   (``projline_pixmom``) and K7 (``projline_linemom``, on K4's samples) at
+   each flagship G2SP level, lines from ``g2sp_P`` with the default K.
+   Each against its plain PyTorch version on the card (K1, K3, K5, K6 and
+   K7 also launched a second time: ``repeatable`` when the bits agree; K5's
    row also says how its samples spread over its tiles); kernel and
    plain times (CUDA events, warmed up, L2 flushed before every launch, as the
    solver finds the map cold) beside the least time the card could take
@@ -52,7 +52,8 @@ bench's children have the whole card, then:
    convolution, K2 and K3 device time;
 6. g2sp_main_path, profile_g2sp, g2sp_train, profile_g2sp_train: the same
    for KITTI G2SP (``Config(direction="G2SP")``, the default K): serving
-   ``G2SP_BATCHES`` batches with exactly 15 K4 launches per batch, and
+   ``G2SP_BATCHES`` batches with exactly 15 K4 and 15 K7 launches per
+   batch, and
    ``G2SP_TRAIN_STEPS`` train steps with exactly 15 K4 and 15 K5 launches
    per step, each against a CPU run of the port at batch 2 (tables in
    chiprun_out/profile_g2sp_eval_b8.txt and profile_g2sp_train_b8.txt);
@@ -223,6 +224,10 @@ K3_FLOPS_KEPT = 24
 # K6 per kept (sample, channel): value 9, d/dx 5, d/dy 5, the residual 1
 # and five products summed (10)
 K6_FLOPS_KEPT = 30
+# K7 per kept (sample, channel): the residual 1 and five products summed
+# (10); its per-sample Jacobian and outer products are a few dozen flops
+# over C channels, left out
+K7_FLOPS_KEPT = 11
 KERNEL_TOL = 1e-4      # |kernel - plain| <= KERNEL_TOL * column scale + 1e-6
 SAMPLER_TOL = 1e-5     # K2, K3: |kernel - plain| <= SAMPLER_TOL * max + 1e-6
 VJP_TOL = 1e-5         # sampler VJP vs autograd: |err| <= VJP_TOL * max
@@ -837,6 +842,61 @@ def pixmom_check(torch, tpl, grd_k, tgt, coefs, W, flush, slot):
     return row
 
 
+def g2sp_line_jacobian(torch, cfg, slot, pose, camera_k, h0, dh):
+    """K7's per-line Jacobian coefficients [B, V, 24] of the lines
+    ``g2sp_lines`` gives, as ``LMG2SP._solver_round`` builds them."""
+    from highlyaccurate_tpu_torch.geometry import kitti as geom
+    from highlyaccurate_tpu_torch.models.lm_s2gp import _level_hw
+    A = cfg.sat_size >> (3 - slot)
+    AY, AX = _level_hw(cfg, slot)
+    ranges = (cfg.rotation_range, cfg.shift_range_lat, cfg.shift_range_lon)
+    j0 = geom.g2sp_inview_col_start(A, AY, AX, *ranges)
+    xyz1 = torch.from_numpy(geom.warp_sat2real(A)[:, j0:]).to(pose.device)
+    dP = geom.g2sp_dP(pose, camera_k, AY, AX, cfg.grd_h, cfg.grd_w, *ranges)
+    return geom.g2sp_line_jac(h0, dh, dP, xyz1[0], xyz1[1] - xyz1[0])
+
+
+def linemom_check(torch, tpl, samples, tgt, coefs, jac, AY, AX, flush,
+                  slot):
+    """K7 on K4's samples (out, dx, dy), the target rows and the lines of
+    one flagship G2SP level against its plain version on the card; timed
+    beside its bound (the kept samples' rows) and beside the bound of
+    reading all four [B, V, W, C] arrays once.  Returns the kernel_check
+    row."""
+    B, V, W, C = samples[0].shape
+    n_keep = int(tpl._projline_cells(coefs, W, AY, AX)[4].sum())
+    got = tpl.projline_linemom(*samples, tgt, coefs, jac, AY, AX)
+    want = tpl.projline_linemom_reference(*samples, tgt, coefs, jac, AY, AX)
+    rep7 = repeatable(torch, got, lambda: tpl.projline_linemom(
+        *samples, tgt, coefs, jac, AY, AX))
+    abs7, rel7, ok7 = lane_error(got, want)
+    del got, want
+    # out, dx, dy and the target row of every kept sample, coefs, jac, the
+    # nine sums written
+    nbytes = (4 * n_keep * C * 4 + coefs.numel() * 4 + jac.numel() * 4
+              + B * V * len(tpl.LINEMOM_IDX) * 4)
+    flops = K7_FLOPS_KEPT * n_keep * C
+    row = dict(phase="kernel_check", kernel="projline_linemom", slot=slot,
+               shape=dict(B=B, AY=AY, AX=AX, C=C, V=V, W=W),
+               max_abs_err=abs7, max_rel_err=rel7,
+               tol=f"|err| <= {SAMPLER_TOL} * max|plain lane| + 1e-6 per lane",
+               within_tol=ok7, repeatable=rep7,
+               ms=time_cuda(torch, lambda: tpl.projline_linemom(
+                   *samples, tgt, coefs, jac, AY, AX), flush),
+               plain_ms=time_cuda(
+                   torch, lambda: tpl.projline_linemom_reference(
+                       *samples, tgt, coefs, jac, AY, AX), flush, iters=5),
+               bytes=nbytes, flops=flops, kept_samples=n_keep,
+               samples=B * V * W, bytes_all_rows=4 * B * V * W * C * 4)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops)
+    row["bound_ms_all_rows"] = row["bytes_all_rows"] / PEAK_BYTES * 1e3
+    emit(row)
+    if not (ok7 and rep7):
+        fail(f"K7 at slot {slot}: with its plain version max abs {abs7} "
+             f"(rel {rel7}), repeatable {rep7}")
+    return row
+
+
 def projline_vjp_check(torch, tpl, grd, h0, dh, W, gen):
     """The projective-line sampler's whole VJP (K4 with dxy, K5 and the
     coefficient gradients, through ``pack_projline_coefs``) against
@@ -867,10 +927,11 @@ def projline_vjp_check(torch, tpl, grd, h0, dh, W, gen):
 
 
 def phase_g2sp_kernels(torch, dev, flush):
-    """K4, K5 and K6 at the three flagship G2SP levels (lines from
-    ``g2sp_P`` at random in-range poses with the default K; K6's target a
-    transposed view of a satellite map, as the model passes it), and the
-    projective-line VJP at the middle one."""
+    """K4, K5, K6 and K7 at the three flagship G2SP levels (lines from
+    ``g2sp_P`` at random in-range poses with the default K; K6's and K7's
+    target a transposed view of a satellite map, as the model passes it;
+    K7 contracts K4's samples), and the projective-line VJP at the middle
+    one."""
     from highlyaccurate_tpu_torch import Config
     from highlyaccurate_tpu_torch.models.lm_s2gp import _scaled_default_k
     from highlyaccurate_tpu_torch.ops import projline as tpl
@@ -879,7 +940,7 @@ def phase_g2sp_kernels(torch, dev, flush):
     gen = torch.Generator(device=dev).manual_seed(3)
     k = torch.from_numpy(_scaled_default_k(cfg)).to(dev).expand(BATCH, 3, 3)
     rows = {"projline_sample": [], "projline_sample_backward": [],
-            "projline_pixmom": []}
+            "projline_pixmom": [], "projline_linemom": []}
     for slot, C in zip((0, 1, 2), (256, 128, 64)):
         pose = torch.rand(BATCH, 3, generator=gen, device=dev) * 2 - 1
         A, AY, AX, j0, h0, dh, coefs = g2sp_lines(torch, cfg, slot, pose, k)
@@ -887,14 +948,20 @@ def phase_g2sp_kernels(torch, dev, flush):
         k4, k5 = projline_checks(torch, tpl, grd.to(torch.bfloat16), coefs,
                                  A, gen, flush, slot)
         sat = torch.randn(BATCH, A, A, C, generator=gen, device=dev)
-        k6 = pixmom_check(torch, tpl, grd.to(torch.bfloat16),
-                          sat[:, :, j0:].transpose(1, 2), coefs, A, flush,
-                          slot)
-        del sat
-        k4["shape"]["j0"] = k5["shape"]["j0"] = k6["shape"]["j0"] = j0
+        tgt = sat[:, :, j0:].transpose(1, 2)
+        k6 = pixmom_check(torch, tpl, grd.to(torch.bfloat16), tgt, coefs, A,
+                          flush, slot)
+        samples = tpl.projline_sample_forward(grd.to(torch.bfloat16), coefs,
+                                              A, with_dxy=False)
+        k7 = linemom_check(torch, tpl, samples, tgt, coefs, g2sp_line_jacobian(
+            torch, cfg, slot, pose, k, h0, dh), AY, AX, flush, slot)
+        del sat, tgt, samples
+        for row in (k4, k5, k6, k7):
+            row["shape"]["j0"] = j0
         rows["projline_sample"].append(k4)
         rows["projline_sample_backward"].append(k5)
         rows["projline_pixmom"].append(k6)
+        rows["projline_linemom"].append(k7)
         if slot == 1:
             emit(dict(phase="projline_vjp", slot=slot, shape=k4["shape"],
                       map="bf16-exact float32", tol=f"|err| <= {VJP_TOL} * max",
@@ -1602,7 +1669,8 @@ def phase_g2sp_main_path(torch, dev):
     init_s = time.perf_counter() - t0
     sat, grd = serve_images(cfg, 2, BATCH * G2SP_BATCHES)
     window = serve_window(torch, loc, sat, grd, "G2SP serving",
-                          {"k4": cfg.N_iters * cfg.n_levels})
+                          {"k4": cfg.N_iters * cfg.n_levels,
+                           "k7": cfg.N_iters * cfg.n_levels})
     model = loc.model
     s8, g8 = first_batch(torch, dev, sat, grd)
     k8 = torch.from_numpy(k).to(dev).expand(BATCH, 3, 3).contiguous()
@@ -1978,7 +2046,7 @@ def phase_gather_main_path(torch, dev, gpu):
     sat, grd = serve_images(cfg, seed, BATCH * 2)
     out, wall, counts, _ = serve_window(
         torch, loc, sat, grd, "G2SP 32-row serving",
-        {"k4": cfg.N_iters * 2})
+        {"k4": cfg.N_iters * 2, "k7": cfg.N_iters * 2})
     s8, g8 = first_batch(torch, dev, sat, grd)
     cpu = cpu_twin(cls, loc.model)
     k2 = extra(2)[0]
@@ -2010,7 +2078,7 @@ CLI_RUNS = {"S2GP": ["--synthetic", "16", "--batch_size", "8"],
 CLI_PER_CALL = {("S2GP", "train"): {"k2": 15, "k3": 15},
                 ("S2GP", "eval"): {"k1": 15},
                 ("G2SP", "train"): {"k4": 15, "k5": 15},
-                ("G2SP", "eval"): {"k4": 15},
+                ("G2SP", "eval"): {"k4": 15, "k7": 15},
                 ("Ford", "train"): {"k2": 15, "k3": 15},
                 ("Ford", "eval"): {"k1": 15}}
 # bf16 features against the float32 reload of the same weights: the
@@ -2388,8 +2456,8 @@ for family in sys.argv[1:]:
 
 def serving_family(torch, dev, family, **over):
     """(Config, model class, Localizer kwargs, the forward's extra inputs
-    of n images on ``device``, the launch key of its solver kernel) of a
-    serving family at the flagship widths."""
+    of n images on ``device``, the launch keys of its solver kernels, the
+    sampler's first) of a serving family at the flagship widths."""
     from highlyaccurate_tpu_torch import Config
     from highlyaccurate_tpu_torch.models.ford import LMS2GPFord
     from highlyaccurate_tpu_torch.models.lm_g2sp import LMG2SP
@@ -2399,7 +2467,8 @@ def serving_family(torch, dev, family, **over):
         cfg = Config(direction="G2SP", **over)
         k = _scaled_default_k(cfg)
         return (cfg, LMG2SP, dict(camera_k=k), lambda n, d: (
-            torch.from_numpy(k).to(d).expand(n, 3, 3).contiguous(),), "k4")
+            torch.from_numpy(k).to(d).expand(n, 3, 3).contiguous(),),
+            ("k4", "k7"))
     cfg = Config(**over)
     if family == "Ford":
         R, T = ford_rig(torch, BATCH)
@@ -2407,8 +2476,8 @@ def serving_family(torch, dev, family, **over):
         return (cfg, LMS2GPFord, dict(ford_extrinsics=(R[0].numpy(),
                                                        T[0].numpy()),
                                       ford_side_m=FORD_SIDE_M),
-                lambda n, d: (FORD_SIDE_M, R[:n], T[:n]), "k1")
-    return cfg, LMS2GP, {}, lambda n, d: (), "k1"
+                lambda n, d: (FORD_SIDE_M, R[:n], T[:n]), ("k1",))
+    return cfg, LMS2GP, {}, lambda n, d: (), ("k1",)
 
 
 def rel_fro(got, want):
@@ -2436,7 +2505,7 @@ def serving_cov(torch, dev, family):
     pose on the card against the CPU twin at batch 2, beside the card with
     TF32 convolutions.  Returns (row, the Localizer)."""
     from highlyaccurate_tpu_torch.inference import Localizer
-    cfg, cls, kw, extra, key = serving_family(torch, dev, family)
+    cfg, cls, kw, extra, keys = serving_family(torch, dev, family)
     loc = Localizer(cfg, random_init=True, batch_size=BATCH, seed=0, **kw)
     sat, grd = serve_images(cfg, 6, 2 * BATCH)
     with warnings.catch_warnings(record=True) as caught:
@@ -2451,7 +2520,8 @@ def serving_cov(torch, dev, family):
     if not any("UNCALIBRATED" in str(w.message) for w in caught):
         fail(f"{family} return_cov: no uncalibrated warning")
     counts = expect_launches(f"{family} return_cov",
-                             {key: 2 * cfg.N_iters * cfg.n_levels})
+                             dict.fromkeys(keys,
+                                           2 * cfg.N_iters * cfg.n_levels))
     cov = out["cov"].astype(np.float64)
     act = list(cfg.active_pose_dims)
     frozen = [i for i in range(3) if i not in act]
@@ -2506,7 +2576,7 @@ def serving_multi_start(torch, dev, family):
     from highlyaccurate_tpu_torch.ops import banded_warp as bw
     from highlyaccurate_tpu_torch.ops import projline as tpl
     from highlyaccurate_tpu_torch.solver.updates import PresetDraws
-    cfg, cls, kw, extra, key = serving_family(torch, dev, family,
+    cfg, cls, kw, extra, keys = serving_family(torch, dev, family,
                                               pose_hypotheses=SERVING_P)
     loc = Localizer(cfg, random_init=True, batch_size=2, seed=0, **kw)
     model = loc.model
@@ -2554,8 +2624,9 @@ def serving_multi_start(torch, dev, family):
         fail(f"{family} multi-start, card vs CPU: {vs_cpu}")
     # the window: every launch of the solver kernel at batch B x P
     batches = []
-    op_name = "_banded_moments_op" if key == "k1" else "_projline_sample_op"
-    mod = bw if key == "k1" else tpl
+    op_name = ("_banded_moments_op" if keys[0] == "k1"
+               else "_projline_sample_op")
+    mod = bw if keys[0] == "k1" else tpl
     op = getattr(mod, op_name)
 
     def seen(t, *a):
@@ -2575,7 +2646,8 @@ def serving_multi_start(torch, dev, family):
         setattr(mod, op_name, op)
     n_batches = SERVING_MS_IMAGES // 2
     counts = expect_launches(f"{family} multi-start",
-                             {key: n_batches * cfg.N_iters * cfg.n_levels})
+                             dict.fromkeys(keys, n_batches * cfg.N_iters
+                                           * cfg.n_levels))
     if set(batches) != {2 * SERVING_P}:
         fail(f"{family} multi-start launched at batches {set(batches)}")
     return dict(family=family, hypotheses=SERVING_P, batch=2,
@@ -2746,7 +2818,7 @@ def serving_export(torch, dev, procs):
     from highlyaccurate_tpu_torch.inference import Localizer
     rows, live, keys = [], {}, {}
     for family, proc in procs.items():
-        cfg, _, kw, _, key = serving_family(torch, dev, family)
+        cfg, _, kw, _, fam_keys = serving_family(torch, dev, family)
         loc = Localizer(cfg, random_init=True, seed=0, **kw,
                         batch_size=max(SERVING_EXPORT_SIZES[family]))
         root = f"{SERVING_ROOT}/{family}"
@@ -2760,7 +2832,7 @@ def serving_export(torch, dev, procs):
         sat, grd = serve_images(cfg, 12, BATCH + 1)
         live[family] = loc.predict(sat, grd)
         np.savez(root + "_in.npz", sat=sat, grd=grd)
-        keys[family] = key
+        keys[family] = fam_keys
         rows.append(dict(family=family,
                          batch_sizes=SERVING_EXPORT_SIZES[family],
                          export_s=child["export_s"], artifact_mb=
@@ -2779,7 +2851,7 @@ def serving_export(torch, dev, procs):
     for row, child in zip(rows, children):
         family = row["family"]
         batches = -(-(BATCH + 1) // max(row["batch_sizes"]))
-        want = {k: 15 * batches if k == keys[family] else 0
+        want = {k: 15 * batches if k in keys[family] else 0
                 for k in child["launches"]}
         if child["launches"] != want:
             fail(f"exported {family} launched {child['launches']}, "
@@ -3961,11 +4033,14 @@ def phase_bench_paths(torch, dev):
 
 
 def kernel_entry(name, source, replaces, launches, rows):
-    """One kernel's entry of the kernels line, summed over its shapes."""
+    """One kernel's entry of the kernels line, summed over its shapes;
+    ``replaces`` the line of the TPU kernel it ports, or None (K7 ports
+    none: the JAX package leaves its work to XLA)."""
     return dict(
         name=name, route="cuda",
         source=f"highlyaccurate_tpu_torch/ops/csrc/{source}",
-        replaces=f"highlyaccurate_tpu/ops/pallas/banded_warp.py:{replaces}",
+        replaces=(None if replaces is None else
+                  f"highlyaccurate_tpu/ops/pallas/banded_warp.py:{replaces}"),
         launches=launches, max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=sum(r["ms"] for r in rows),
         plain_ms=sum(r["plain_ms"] for r in rows),
@@ -4010,6 +4085,7 @@ def main():
     k1, k2, k3 = (("banded_moments_kernel", 15), "banded_sample_kernel",
                   "banded_sample_backward_kernel")
     k4, k5 = "projline_sample_kernel", "projline_sample_backward_kernel"
+    k7 = "projline_linemom_kernel"
     kitti = ("level 3, N_iters 5, fp32 features, bf16 map, TF32 off, Adam")
 
     row, forward = phase_main_path(torch, dev)
@@ -4030,8 +4106,9 @@ def main():
 
     row, forward = phase_g2sp_main_path(torch, dev)
     eval_profile(torch, "profile_g2sp", forward, row["forward_ms_per_batch"],
-                 "chiprun_out/profile_g2sp_eval_b8.txt", {"k4": (k4, 15)})
-    k4_launches = row["k4_launches"]
+                 "chiprun_out/profile_g2sp_eval_b8.txt",
+                 {"k4": (k4, 15), "k7": (k7, 15)})
+    k4_launches, k7_launches = row["k4_launches"], row["k7_launches"]
     del forward
     torch.cuda.empty_cache()
     g2sp = Config(direction="G2SP")
@@ -4052,7 +4129,8 @@ def main():
     eval_profile(torch, "profile_g2sp_pixmom", forward,
                  row["forward_ms_per_batch"],
                  "chiprun_out/profile_g2sp_pixmom_eval_b8.txt",
-                 {"k6": ("projline_pixmom_kernel", 15), "k4": (k4, 0)})
+                 {"k6": ("projline_pixmom_kernel", 15), "k4": (k4, 0),
+                  "k7": (k7, 0)})
     k6_launches = row["k6_launches"]
     del forward
     torch.cuda.empty_cache()
@@ -4095,9 +4173,10 @@ def main():
     phase_bench_paths(torch, dev)
     emit(dict(phase="total", seconds=time.perf_counter() - t_start))
 
-    # library_ms is null for all six: no single PyTorch call computes
+    # library_ms is null for all seven: no single PyTorch call computes
     # them (grid_sample gives neither the derivatives, nor the edge quirk,
-    # nor the in-front mask of the projective lines, nor K6's moments)
+    # nor the in-front mask of the projective lines, nor K6's moments, nor
+    # K7's per-line sums)
     emit({"kernels": [
         kernel_entry("banded_moments", "banded_moments.cu", 704,
                      k1_launches, shapes["banded_moments"]),
@@ -4111,6 +4190,8 @@ def main():
                      k5_launches, shapes["projline_sample_backward"]),
         kernel_entry("projline_pixmom", "projline_sampler.cu", 2190,
                      k6_launches, shapes["projline_pixmom"]),
+        kernel_entry("projline_linemom", "projline_sampler.cu", None,
+                     k7_launches, shapes["projline_linemom"]),
     ]})
     print(f"gpu: {gpu}", flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

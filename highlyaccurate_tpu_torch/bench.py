@@ -134,7 +134,7 @@ def specs(device: str) -> dict:
         "gather_eval_fps": Spec(
             "S2GP", dataclasses.replace(fp32, use_banded_warp=0), batch, n,
             {}),
-        "g2sp_eval_fps": Spec("G2SP", g2sp, batch, n, {"k4": 15}),
+        "g2sp_eval_fps": Spec("G2SP", g2sp, batch, n, {"k4": 15, "k7": 15}),
         "g2sp_train_fps": Spec(
             "G2SP", dataclasses.replace(g2sp, remat=1), batch, None,
             {"k4": 15, "k5": 15}, train=True),

@@ -227,11 +227,11 @@ def g2sp_inview_col_start(A: int, grd_H: int, grd_W: int,
 def _scaled_k(camera_k, grd_H: int, grd_W: int, ori_grdH: int,
               ori_grdW: int):
     """camera_k [B, 3, 3] (for the ori_grdH x ori_grdW input) rescaled to
-    the grd_H x grd_W feature map, float32."""
+    the grd_H x grd_W feature map, float32.  The rows are scaled by Python
+    numbers, so nothing is copied from the host."""
     k = camera_k.to(torch.float32)
-    scale = torch.tensor([grd_W / ori_grdW, grd_H / ori_grdH, 1.0],
-                         dtype=torch.float32, device=k.device)
-    return k * scale[:, None]
+    return torch.cat([k[:, :1] * (grd_W / ori_grdW),
+                      k[:, 1:2] * (grd_H / ori_grdH), k[:, 2:]], dim=1)
 
 
 def _rot_neg_heading(pose, rotation_range: float):
@@ -263,6 +263,42 @@ def g2sp_P(pose, camera_k, grd_H: int, grd_W: int, ori_grdH: int,
     return _k_times(k, torch.cat([R, T], dim=-1))
 
 
+def g2sp_dP(pose, camera_k, grd_H: int, grd_W: int, ori_grdH: int,
+            ori_grdW: int, rotation_range: float, shift_range_lat: float,
+            shift_range_lon: float):
+    """d(``g2sp_P``)/d(pose) [B, 3 (pose dim), 3, 4]: K' dM_k with dM_u =
+    [0 | dT/du], dM_v = [0 | dT/dv] and dM_theta = [dR(-heading)/dtheta |
+    0], the matrices ``g2sp_uv_jac``'s quotient rule projects.  Built on
+    the pose's device from the pose alone (no copy from the host)."""
+    cos, sin = _rot_neg_heading(pose, rotation_range)
+    zeros = torch.zeros_like(cos)
+    dM = torch.zeros(pose.shape[0], 3, 3, 4, dtype=torch.float32,
+                     device=pose.device)
+    dM[:, 0, 2, 3] = -shift_range_lon     # dT/du = (0, 0, -lon)
+    dM[:, 1, 0, 3] = shift_range_lat      # dT/dv = (lat, 0, 0)
+    # d(-heading)/d(theta_norm) = -rot_scale, folded into dR
+    dM[:, 2, :, :3] = (rotation_range / 180.0 * np.pi) * torch.stack(
+        [sin, zeros, cos,
+         zeros, zeros, zeros,
+         -cos, zeros, sin], dim=-1).reshape(-1, 3, 3)
+    k = _scaled_k(camera_k, grd_H, grd_W, ori_grdH, ori_grdW)
+    return (k[:, None, :, :, None] * dM[:, :, None, :, :]).sum(3)
+
+
+def g2sp_line_jac(h0, dh, dP, x0, dx):
+    """The per-line Jacobian coefficients [B, V, 24] of K7
+    (``ops/projline.py`` ``projline_linemom``) for the lines of ground
+    points x0 + u*dx (x0, dx [V, 4]): for P, the lines' images h0, dh
+    [B, V, 3], then for each dP_k of ``g2sp_dP`` [B, 3, 3, 4] the images
+    dP_k x0 and dP_k dx, three floats each."""
+    def project_d(X):  # [V, 4] -> [B, V, 3 (pose dim), 3]
+        return (dP[:, None] * X[None, :, None, None, :]).sum(-1)
+
+    return torch.stack([torch.cat([h0[:, :, None], project_d(x0)], 2),
+                        torch.cat([dh[:, :, None], project_d(dx)], 2)],
+                       3).flatten(2)
+
+
 def _apply_P(P, XYZ1):
     """P [B, 3, 4] applied to points XYZ1 [H, W, 4] -> [B, H, W, 3]."""
     return (P[:, None, None, :, :] * XYZ1[None, :, :, None, :]).sum(-1)
@@ -280,39 +316,23 @@ def g2sp_uv_jac(pose, XYZ1, camera_k, grd_H: int, grd_W: int,
     duv_dpose [B, H, W, 2, 3] (zero where the point is not in front of the
     camera) and that mask [B, H, W] (uv1_z > 1e-6).
     """
-    B = pose.shape[0]
-    f32 = dict(dtype=torch.float32, device=pose.device)
-    rot_scale = rotation_range / 180.0 * np.pi
-    cos, sin = _rot_neg_heading(pose, rotation_range)
-    zeros = torch.zeros_like(cos)
-    k = _scaled_k(camera_k, grd_H, grd_W, ori_grdH, ori_grdW)
     P = g2sp_P(pose, camera_k, grd_H, grd_W, ori_grdH, ori_grdW,
                rotation_range, shift_range_lat, shift_range_lon)
+    dP = g2sp_dP(pose, camera_k, grd_H, grd_W, ori_grdH, ori_grdW,
+                 rotation_range, shift_range_lat, shift_range_lon)
 
     uv1 = _apply_P(P, XYZ1)                                # [B, H, W, 3]
     uv1_last = torch.clamp_min(uv1[..., 2:], 1e-6)
     uv = uv1[..., :2] / uv1_last
     mask = uv1[..., 2] > 1e-6
 
-    zeros33 = torch.zeros(B, 3, 3, **f32)
-    dT_du = torch.tensor([0.0, 0.0, -1.0], **f32) * shift_range_lon
-    dT_dv = torch.tensor([1.0, 0.0, 0.0], **f32) * shift_range_lat
-    # d(-heading)/d(theta_norm) = -rot_scale, folded into dR
-    dR_dtheta = rot_scale * torch.stack(
-        [sin, zeros, cos,
-         zeros, zeros, zeros,
-         -cos, zeros, sin], dim=-1).reshape(B, 3, 3)
-
-    def quotient(dM):
-        duv1 = _apply_P(_k_times(k, dM), XYZ1)
+    def quotient(dPk):
+        duv1 = _apply_P(dPk, XYZ1)
         q = duv1[..., :2] / uv1_last - uv * duv1[..., 2:] / uv1_last
         return torch.where(mask[..., None], q, torch.zeros_like(q))
 
-    duv = torch.stack([
-        quotient(torch.cat([zeros33, dT_du.expand(B, 3)[..., None]], -1)),
-        quotient(torch.cat([zeros33, dT_dv.expand(B, 3)[..., None]], -1)),
-        quotient(torch.cat([dR_dtheta, torch.zeros(B, 3, 1, **f32)], -1)),
-    ], dim=-1)                                            # [B, H, W, 2, 3]
+    duv = torch.stack([quotient(dP[:, i]) for i in range(3)],
+                      dim=-1)                             # [B, H, W, 2, 3]
     return uv, duv, mask
 
 

@@ -13,19 +13,22 @@ slot takes one of two samplers, chosen per slot as JAX chooses per level
   (``use_banded_warp`` and ``banded_bf16_map``) and ``projline_supported``
   takes the slot's ground map: each round runs ``g2sp_P`` on the line's
   first two ground points, packs the projective-line coefficients
-  (``pack_projline_coefs``), samples the ground map with K4 (out, dx, dy
-  [B, V, W, C] in line order: V satellite columns, W = A satellite rows),
-  takes the per-pixel d(uv)/d(pose) from ``g2sp_uv_jac`` and solves
-  ``lm_update_implicit_pixel`` against the satellite features of those
-  columns (residual grd_proj - sat, no feature normalization, no re-init,
-  damping used raw).  Evaluation samples a bf16 copy of each ground map
-  made once per forward (a no-op under bf16 features,
-  ``compute_dtype="bfloat16"``); with ``g2sp_pixel_moments`` it runs K6
-  instead of K4, which contracts the samples with the target into five
-  moments per pixel, and solves ``lm_update_pixel_moments``.  Training
-  keeps K4 whatever that flag says: it goes through the differentiable
-  sampler (K4 with dxy forward, K5 backward), whose bf16 cast sits inside
-  the autograd function;
+  (``pack_projline_coefs``) and samples the ground map with K4 (out, dx, dy
+  [B, V, W, C] in line order: V satellite columns, W = A satellite rows);
+  the residual is grd_proj - sat against the satellite features of those
+  columns (no feature normalization, no re-init, damping used raw).
+  Evaluation samples a bf16 copy of each ground map made once per forward
+  (a no-op under bf16 features, ``compute_dtype="bfloat16"``), then K7
+  contracts K4's samples line by line into the sums of H and g, with the
+  per-pixel d(uv)/d(pose) of ``g2sp_uv_jac`` formed in the kernel from
+  each line's image under P and dP/dpose (``g2sp_dP``), and
+  ``lm_update_line_moments`` solves; with ``g2sp_pixel_moments`` it runs K6
+  instead of K4 and K7, which contracts the samples with the target into
+  five moments per pixel, and solves ``lm_update_pixel_moments`` on the
+  d(uv)/d(pose) of ``g2sp_uv_jac``.  Training keeps K4 whatever that flag
+  says: it goes through the differentiable sampler (K4 with dxy forward,
+  K5 backward), whose bf16 cast sits inside the autograd function, and
+  solves ``lm_update_implicit_pixel`` on ``g2sp_uv_jac``'s d(uv)/d(pose);
 * the gather sampler (``ops/grid_sample.py``) everywhere else, on the
   ground map in its own dtype: ``g2sp_uv_jac`` at the same points, then
   ``grid_sample_derivs`` and ``lm_update_implicit_pixel``, or with
@@ -95,6 +98,7 @@ from highlyaccurate_tpu_torch.ops.correlation import grouped_corr, window_sum
 from highlyaccurate_tpu_torch.ops.grid_sample import (grid_sample,
                                                       grid_sample_derivs)
 from highlyaccurate_tpu_torch.ops.projline import (pack_projline_coefs,
+                                                   projline_linemom,
                                                    projline_pixmom,
                                                    projline_sample,
                                                    projline_sample_forward,
@@ -103,6 +107,7 @@ from highlyaccurate_tpu_torch.solver.updates import (LMConfig,
                                                      lm_information,
                                                      lm_update,
                                                      lm_update_implicit_pixel,
+                                                     lm_update_line_moments,
                                                      lm_update_pixel_moments,
                                                      pose_covariance)
 from highlyaccurate_tpu_torch.utils import geo as geo_utils
@@ -315,21 +320,26 @@ class LMG2SP(nn.Module):
         def project(X):  # [V, 4] -> [B, V, 3]
             return (P[:, None, :, :] * X[None, :, None, :]).sum(-1)
 
-        coefs = pack_projline_coefs(project(getattr(self, f"x0_{slot}")),
-                                    project(getattr(self, f"dx_{slot}")),
-                                    Hg, Wg, Hg, A)
+        x0, dx0 = getattr(self, f"x0_{slot}"), getattr(self, f"dx_{slot}")
+        h0, dh = project(x0), project(dx0)
+        coefs = pack_projline_coefs(h0, dh, Hg, Wg, Hg, A)
+        if not train and not cfg.g2sp_pixel_moments:
+            out, dx, dy = projline_sample_forward(grd_map, coefs, A,
+                                                  with_dxy=False)
+            dP = geom.g2sp_dP(pose, camera_k, Hg, Wg, cfg.grd_h, cfg.grd_w,
+                              *ranges)                    # [B, 3, 3, 4]
+            jac = geom.g2sp_line_jac(h0, dh, dP, x0, dx0)  # [B, V, 24]
+            lm = projline_linemom(out, dx, dy, target, coefs, jac, Hg, Wg)
+            return lm_update_line_moments(pose, lm, self.damping,
+                                          self.lm_cfg)
         _, duv, _ = geom.g2sp_uv_jac(pose, getattr(self, f"lines_{slot}"),
                                      camera_k, Hg, Wg, cfg.grd_h, cfg.grd_w,
                                      *ranges)             # [B, V, A, 2, 3]
-        if not train and cfg.g2sp_pixel_moments:
+        if not train:   # g2sp_pixel_moments
             pm = projline_pixmom(grd_map, target, coefs, A)  # [B, V, A, 5]
             return lm_update_pixel_moments(pose, pm, duv, self.damping,
                                            self.lm_cfg)
-        if train:
-            out, dx, dy = projline_sample(grd_map, coefs, W=A)
-        else:
-            out, dx, dy = projline_sample_forward(grd_map, coefs, A,
-                                                  with_dxy=False)
+        out, dx, dy = projline_sample(grd_map, coefs, W=A)
         return lm_update_implicit_pixel(pose, out, dx, dy, target, duv,
                                         self.damping, self.lm_cfg)
 

@@ -8,14 +8,15 @@ and ``expect_launches`` are the one place that reads and checks them.
 
 
 def launch_counters() -> dict:
-    """{"k1": ..., "k6": ...}: the wrapper of each kernel, whose
+    """{"k1": ..., "k7": ...}: the wrapper of each kernel, whose
     ``launches`` counts its launches."""
     from highlyaccurate_tpu_torch.ops import banded_warp as bw
     from highlyaccurate_tpu_torch.ops import projline as tpl
     return {"k1": bw.banded_moments, "k2": bw.banded_sample,
             "k3": bw.banded_sample_backward,
             "k4": tpl.projline_sample_forward,
-            "k5": tpl.projline_sample_backward, "k6": tpl.projline_pixmom}
+            "k5": tpl.projline_sample_backward, "k6": tpl.projline_pixmom,
+            "k7": tpl.projline_linemom}
 
 
 def reset_launches() -> None:
@@ -25,7 +26,7 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    """{"k1": n, ..., "k6": n}: each kernel's launches so far."""
+    """{"k1": n, ..., "k7": n}: each kernel's launches so far."""
     return {k: fn.launches for k, fn in launch_counters().items()}
 
 

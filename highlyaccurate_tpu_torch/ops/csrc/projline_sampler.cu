@@ -1,6 +1,6 @@
-// K4, K5 and K6: the projective-line sampler of the G2SP direction, its map
-// gradient, and the sampler fused with the per-pixel LM moments (Hopper,
-// sm_90a).
+// K4, K5, K6 and K7: the projective-line sampler of the G2SP direction, its
+// map gradient, the sampler fused with the per-pixel LM moments, and its
+// samples contracted per line into the LM normal equations (Hopper, sm_90a).
 //
 // K4 replaces the Pallas TPU kernel family behind _raw_projline_forward
 // (highlyaccurate_tpu/ops/pallas/banded_warp.py:1821; bodies
@@ -122,6 +122,43 @@
 // result is bit-repeatable.  The 16-byte loads need C % 8 == 0 and
 // 16-byte-aligned rows (the wrapper checks and raises).  Tolerance against
 // the plain version: |err| <= 1e-5 x max|plain lane| + 1e-6 per lane.
+//
+// K7: K4's samples contracted, line by line, into the sums of the G2SP LM
+// normal equations (G2SP evaluation with g2sp_pixel_moments=0).  It
+// replaces no TPU kernel: the JAX package leaves this contraction to XLA
+// (pixel moments, the per-pixel Jacobian of g2sp_uv_jac and the outer
+// products of lm_update_implicit_pixel).  For each line (b, v) and each
+// sample u that K4 keeps (projline_cell on the same coefficients), with out,
+// dx, dy read from K4's outputs and the target row tgt[b, v, u, :]:
+//   r = out - tgt; sxx, sxy, syy, rx, ry the five channel sums of K6
+//   h = h0 + u*dh (the line's image point under P), z = h_z
+//   duv_k = (dh_k,x / z - x * dh_k,z / z, dh_k,y / z - y * dh_k,z / z),
+//   (x, y) = h_xy / z, dh_k = dh0_k + u*ddh_k for the pose dims k = 0..2
+//   (zero where z <= 1e-6, as g2sp_uv_jac masks them)
+//   H += Du Du^T sxx + (Du Dv^T + Dv Du^T) sxy + Dv Dv^T syy,
+//   g += Du rx + Dv ry   -> lm [B, V, 9]: H00 H01 H02 H11 H12 H22 g0 g1 g2
+// The per-line Jacobian coefficients come as [B, V, 24]: (h0, dh) of P and
+// of dP/dpose_k, k = 0..2, three floats each.  z is rounded as
+// projline_cell rounds den, so a kept sample always has z > 1e-6.  A
+// sample K4 masks is never read (its out, dx and dy are zeros there).
+//
+// What bounds K7 on the H100: bytes.  It reads the kept samples' out, dx,
+// dy and target rows (4 x C x 4 bytes a kept sample; at most 4 x 1.81 GB a
+// round at the finest flagship level, batch 128, 19-23% of it kept) against
+// ~10 flop per (kept sample, channel), and writes 36 bytes a line.  Design:
+// one warp per line, lines in blocks of eight.  The warp walks the line in
+// runs of 32 samples: each lane tests its sample with projline_cell, the
+// warp ballots the kept ones into a list in shared memory, and groups of G
+// lanes (G as in K6: 8 / 16 / 32 at C = 64 / 128 / 256) take one kept
+// sample each, 8 channels per lane per step in 16-byte loads, neighbouring
+// lanes on neighbouring channels.  A group reduces its five sums with
+// log2(G) __shfl_xor_sync steps, then every lane of the group forms the
+// sample's duv and adds its terms to nine registers; at the end of the line
+// the groups' sums meet in log2(32/G) more steps and lane 0 writes them.
+// No atomics: every sum has a fixed order, so the result is bit-repeatable.
+// The 16-byte loads need C % 8 == 0 and 16-byte-aligned rows (the wrapper
+// checks and raises).  Tolerance against the plain version: |err| <= 1e-5 x
+// max|plain lane| + 1e-6 per lane.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -712,6 +749,151 @@ projline_pixmom_kernel(const float* __restrict__ coefs,
   }
 }
 
+// K7's lines per block (one warp each), Jacobian coefficients per line and
+// sums per line.
+constexpr int kLineWarps = kThreads / 32;
+constexpr int kJac = 24;
+constexpr int kLinemom = 9;  // H00 H01 H02 H11 H12 H22 g0 g1 g2
+
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// The five moments of four channels: K4's out, dx, dy and the target.
+__device__ __forceinline__ void moments4(const float4& o, const float4& x,
+                                         const float4& y, const float4& t,
+                                         float (&s)[kPixmom]) {
+  const float ox[4] = {o.x, o.y, o.z, o.w}, xx[4] = {x.x, x.y, x.z, x.w};
+  const float yy[4] = {y.x, y.y, y.z, y.w}, tt[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float r = ox[i] - tt[i];
+    s[0] += xx[i] * xx[i];
+    s[1] += xx[i] * yy[i];
+    s[2] += yy[i] * yy[i];
+    s[3] += xx[i] * r;
+    s[4] += yy[i] * r;
+  }
+}
+
+// Adds sample u's terms of H and g, from its five moments s and the line's
+// Jacobian coefficients jc, to acc.
+__device__ __forceinline__ void add_terms(const float (&jc)[kJac], int u,
+                                          const float (&s)[kPixmom],
+                                          float (&acc)[kLinemom]) {
+  const float uf = static_cast<float>(u);
+  // den's roundings in projline_cell: a kept sample has z > 1e-6
+  const float z = __fadd_rn(jc[2], __fmul_rn(jc[5], uf));
+  if (!(z > 1e-6f)) return;
+  const float x = __fadd_rn(jc[0], __fmul_rn(jc[3], uf)) / z;
+  const float y = __fadd_rn(jc[1], __fmul_rn(jc[4], uf)) / z;
+  float du[3], dv[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const float* c = jc + 6 * (k + 1);
+    const float ez = (c[2] + uf * c[5]) / z;
+    du[k] = (c[0] + uf * c[3]) / z - x * ez;
+    dv[k] = (c[1] + uf * c[4]) / z - y * ez;
+  }
+  const float sxx = s[0], sxy = s[1], syy = s[2];
+  int q = 0;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+#pragma unroll
+    for (int b = a; b < 3; ++b) {
+      acc[q++] += du[a] * du[b] * sxx + (du[a] * dv[b] + dv[a] * du[b]) * sxy +
+                  dv[a] * dv[b] * syy;
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 3; ++a) acc[6 + a] += du[a] * s[3] + dv[a] * s[4];
+}
+
+// K7 with groups of G lanes per kept sample (G a power of two, G <= C/8).
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+projline_linemom_kernel(const float* __restrict__ coefs,
+                        const float* __restrict__ jac,
+                        const float* __restrict__ out,
+                        const float* __restrict__ dx,
+                        const float* __restrict__ dy,
+                        const float* __restrict__ tgt, float* __restrict__ lm,
+                        int V, int W, int AY, int AX, int C8,
+                        long long n_lines, long long tgt_sb, long long tgt_sv,
+                        long long tgt_su) {
+  constexpr int kGroups = 32 / G;  // samples a warp takes at once
+  __shared__ int kept[kLineWarps][32];
+
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int w = static_cast<int>(threadIdx.x >> 5);
+  const long long line = static_cast<long long>(blockIdx.x) * kLineWarps + w;
+  if (line >= n_lines) return;  // the whole warp; no block barrier follows
+  const int b = static_cast<int>(line / V);
+  const int v = static_cast<int>(line - static_cast<long long>(b) * V);
+  const float* cf = coefs + line * kCoefs;
+  float jc[kJac];
+#pragma unroll
+  for (int i = 0; i < kJac; ++i) jc[i] = jac[line * kJac + i];
+  const int g = lane / G;      // the lane's group
+  const int j = lane & (G - 1);  // its place in the group
+  const long long C = 8LL * C8;
+  const float* tgt_l = tgt + b * tgt_sb + v * tgt_sv;
+
+  float acc[kLinemom];
+#pragma unroll
+  for (int q = 0; q < kLinemom; ++q) acc[q] = 0.f;
+  for (int u0 = 0; u0 < W; u0 += 32) {
+    const int u = u0 + lane;
+    int x0, y0;
+    float fx, fy;
+    const bool keep = u < W && projline_cell(cf, u, AY, AX, x0, y0, fx, fy);
+    const unsigned m = __ballot_sync(0xffffffffu, keep);
+    if (keep) kept[w][__popc(m & ((1u << lane) - 1u))] = u;
+    __syncwarp();
+    const int n = __popc(m);
+    for (int i0 = 0; i0 < n; i0 += kGroups) {
+      const int i = i0 + g;
+      const bool live = i < n;
+      const int us = kept[w][live ? i : 0];
+      float s[kPixmom] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      if (live) {
+        const long long o = (line * W + us) * C;
+        const float* tp = tgt_l + us * tgt_su;
+        for (int c8 = j; c8 < C8; c8 += G) {
+          const long long e = o + 8 * c8;
+          const float4 o0 = load4(out + e), o1 = load4(out + e + 4);
+          const float4 x0v = load4(dx + e), x1v = load4(dx + e + 4);
+          const float4 y0v = load4(dy + e), y1v = load4(dy + e + 4);
+          const float4 t0 = load4(tp + 8 * c8), t1 = load4(tp + 8 * c8 + 4);
+          moments4(o0, x0v, y0v, t0, s);
+          moments4(o1, x1v, y1v, t1, s);
+        }
+      }
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) {
+#pragma unroll
+        for (int q = 0; q < kPixmom; ++q)
+          s[q] += __shfl_xor_sync(0xffffffffu, s[q], off);
+      }
+      if (live) add_terms(jc, us, s, acc);
+    }
+    __syncwarp();  // the list is rewritten by the next run
+  }
+  // every lane of a group holds its group's sums: the groups meet
+#pragma unroll
+  for (int off = G; off < 32; off <<= 1) {
+#pragma unroll
+    for (int q = 0; q < kLinemom; ++q)
+      acc[q] += __shfl_xor_sync(0xffffffffu, acc[q], off);
+  }
+  if (lane < kLinemom) {
+    float val = acc[0];
+#pragma unroll
+    for (int q = 1; q < kLinemom; ++q) val = lane == q ? acc[q] : val;
+    lm[line * kLinemom + lane] = val;
+  }
+}
+
 unsigned grid_size(int B, int V, int W, int C, int* chunks) {
   *chunks = (W * (C / 2) + kThreads - 1) / kThreads;
   return static_cast<unsigned>(B) * static_cast<unsigned>(V) *
@@ -809,6 +991,48 @@ extern "C" int projline_pixmom_launch(const void* coefs, const void* map,
         static_cast<unsigned>((n_runs + runs_per_block - 1) / runs_per_block),
         kThreads, 0, s>>>(cf, mp, tg, out, V, W, AY, AX, C8, runs, n_runs,
                           map_sb, map_sy, map_sx, tgt_sb, tgt_sv, tgt_su);
+  };
+  if (C8 >= 32) {
+    launch(std::integral_constant<int, 32>{});
+  } else if (C8 >= 16) {
+    launch(std::integral_constant<int, 16>{});
+  } else if (C8 >= 8) {
+    launch(std::integral_constant<int, 8>{});
+  } else if (C8 >= 4) {
+    launch(std::integral_constant<int, 4>{});
+  } else if (C8 >= 2) {
+    launch(std::integral_constant<int, 2>{});
+  } else {
+    launch(std::integral_constant<int, 1>{});
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7.  coefs is a contiguous [B, V, 16], jac a contiguous [B, V, 24]; out,
+// dx, dy are K4's contiguous [B, V, W, C]; the fp32 target rows [B, V, W, C]
+// may be a strided view with unit channel stride; C % 8 == 0 and
+// 16-byte-aligned rows (target strides multiples of 4 elements,
+// 16-byte-aligned pointers); lm is a contiguous [B, V, 9].
+extern "C" int projline_linemom_launch(const void* coefs, const void* jac,
+                                       const void* out, const void* dx,
+                                       const void* dy, const void* tgt,
+                                       void* lm, int B, int V, int W, int AY,
+                                       int AX, int C, long long tgt_sb,
+                                       long long tgt_sv, long long tgt_su,
+                                       void* stream) {
+  const long long n_lines = static_cast<long long>(B) * V;
+  const unsigned blocks =
+      static_cast<unsigned>((n_lines + kLineWarps - 1) / kLineWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int C8 = C / 8;
+  auto launch = [&](auto group) {
+    constexpr int G = decltype(group)::value;
+    projline_linemom_kernel<G><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(coefs), static_cast<const float*>(jac),
+        static_cast<const float*>(out), static_cast<const float*>(dx),
+        static_cast<const float*>(dy), static_cast<const float*>(tgt),
+        static_cast<float*>(lm), V, W, AY, AX, C8, n_lines, tgt_sb, tgt_sv,
+        tgt_su);
   };
   if (C8 >= 32) {
     launch(std::integral_constant<int, 32>{});

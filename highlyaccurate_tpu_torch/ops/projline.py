@@ -1,7 +1,9 @@
 """Projective-line sampler of the G2SP direction: K4, its forward, K5, the
-map gradient, and K6, K4 fused with the per-pixel LM moments (port of
+map gradient, K6, K4 fused with the per-pixel LM moments (port of
 ``highlyaccurate_tpu/ops/pallas/banded_warp.py:276, 1353-1412, 1744-1818,
-1821-1870, 1963-2003, 2006-2114, 2117-2138, 2190-2263``).
+1821-1870, 1963-2003, 2006-2114, 2117-2138, 2190-2263``), and K7, K4's
+samples contracted per line into the LM normal equations (no TPU kernel:
+the JAX package leaves that contraction to XLA).
 
 Along one satellite column the ground-plane points form a 3D line, and the
 perspective image of a line is a line: the homogeneous ground-map
@@ -17,16 +19,21 @@ coefficient gradients of the JAX custom VJP.  K6 (``projline_pixmom``,
 evaluation only) samples as K4 does and contracts each sample's out, dx, dy
 over the channels with the target row into the five moments of
 ``lm_update_pixel_moments`` (``PIXMOM_IDX``), so the [B, V, W, C] samples
-never reach device memory.
+never reach device memory.  K7 (``projline_linemom``, evaluation only)
+reads K4's kept samples and the target rows once and sums, per line, the
+G2SP update's H and g (``LINEMOM_IDX``) with the per-pixel Jacobian of
+``g2sp_uv_jac`` formed from per-line coefficients (``NJAC``), so none of
+the [B, V, W, C] temporaries of the plain contraction exist.
 
 Each wrapper launches its CUDA kernel (``csrc/projline_sampler.cu``) on CUDA
 tensors, or raises; on CPU tensors it runs the plain PyTorch version beside
 it, which the tests hold to the JAX kernel.
 ``projline_sample_forward.launches`` (K4),
-``projline_sample_backward.launches`` (K5) and ``projline_pixmom.launches``
-(K6) count kernel launches.  K4's forward and K6 launch through
-``torch.library`` custom ops (``highlyaccurate_tpu_torch::projline_sample``,
-``::projline_pixmom``), as K1 and K2 do (``ops/banded_warp.py``), so that
+``projline_sample_backward.launches`` (K5), ``projline_pixmom.launches``
+(K6) and ``projline_linemom.launches`` (K7) count kernel launches.  K4's
+forward, K6 and K7 launch through ``torch.library`` custom ops
+(``highlyaccurate_tpu_torch::projline_sample``, ``::projline_pixmom``,
+``::projline_linemom``), as K1 and K2 do (``ops/banded_warp.py``), so that
 an exported program launches them.
 """
 
@@ -43,6 +50,12 @@ NCOEF = 16  # nx0 dnx ny0 dny d0 dd slope oy nck xref yref xlo xhi 0 0 0
 # K6's moment lanes, r = out - target (banded_warp.py:276); the TPU kernel
 # pads them to 16 lanes for its layout, this port emits these five
 PIXMOM_IDX = dict(sxx=0, sxy=1, syy=2, rx=3, ry=4)
+# K7's lanes: each line's sums of H (its six unique entries) and g
+LINEMOM_IDX = dict(h00=0, h01=1, h02=2, h11=3, h12=4, h22=5, g0=6, g1=7,
+                   g2=8)
+_H_PAIRS = ((0, 0), (0, 1), (0, 2), (1, 1), (1, 2), (2, 2))
+# K7's per-line Jacobian coefficients: (h0, dh) of P, then of dP/dpose_k
+NJAC = 24
 _SHEAR_CHUNK = 8                   # the TPU kernel's row-chunk size
 _FULLMAP_VMEM_BUDGET = 9 * 2 ** 20  # the TPU kernel's bf16 map residency
 
@@ -444,3 +457,130 @@ def _(grd_k, tgt, coefs, W):
 
 
 projline_pixmom.launches = 0
+
+
+def projline_line_duv(jac, W: int):
+    """The per-pixel Jacobian rows Du, Dv [B, V, W, 3] (d(x)/d(pose),
+    d(y)/d(pose)) of every sample of every line, from the per-line
+    coefficients jac [B, V, 24] (``NJAC``): ``g2sp_uv_jac``'s quotient
+    rule on h(u) = h0 + u*dh and dh_k(u) = dh0_k + u*ddh_k, zero where
+    h_z <= 1e-6.  h_z is rounded as the kernels round den."""
+    f32 = torch.float32
+    u = torch.arange(W, dtype=f32, device=jac.device)
+    c = jac.to(f32).unflatten(-1, (4, 2, 3))          # [B, V, 4, (h0, dh), 3]
+    h = c[..., 0, None, :] + u[:, None] * c[..., 1, None, :]  # [B, V, 4, W, 3]
+    z = h[:, :, 0, :, 2]                                # [B, V, W]
+    front = z > 1e-6
+    z = torch.where(front, z, torch.ones_like(z))[:, :, None]
+    x, y = h[:, :, :1, :, 0] / z, h[:, :, :1, :, 1] / z
+    e = h[:, :, 1:]                                     # [B, V, 3, W, 3]
+    ez = e[..., 2] / z
+    m = front[:, :, None].to(f32)
+    du = (e[..., 0] / z - x * ez) * m                   # [B, V, 3, W]
+    dv = (e[..., 1] / z - y * ez) * m
+    return du.transpose(2, 3), dv.transpose(2, 3)
+
+
+def line_normal_sums(Du, Dv, moments):
+    """Each line's H (six unique entries) and g [B, V, 9] in ``LINEMOM_IDX``
+    order, summed over its samples: duv rows Du, Dv [B, V, W, 3] and the
+    five moments (sxx, sxy, syy, rx, ry), each [B, V, W]."""
+    sxx, sxy, syy, rx, ry = moments
+    lanes = [(Du[..., a] * Du[..., b] * sxx
+              + (Du[..., a] * Dv[..., b] + Dv[..., a] * Du[..., b]) * sxy
+              + Dv[..., a] * Dv[..., b] * syy).sum(-1)
+             for a, b in _H_PAIRS]
+    lanes += [(Du[..., a] * rx + Dv[..., a] * ry).sum(-1) for a in range(3)]
+    return torch.stack(lanes, -1)
+
+
+def projline_linemom_reference(out, dx, dy, tgt, coefs, jac, AY: int,
+                               AX: int):
+    """Plain PyTorch K7: K4's samples out, dx, dy [B, V, W, C] of the AY x
+    AX ground map along the lines of coefs [B, V, 16], the target rows tgt
+    [B, V, W, C] (any strides) and the per-line Jacobian coefficients jac
+    [B, V, 24] -> [B, V, 9] float32.  Samples K4 masks add nothing."""
+    W = out.shape[2]
+    keep = _projline_cells(coefs, W, AY, AX)[4]
+    moments = tuple(m * keep for m in pixel_moments(
+        out.to(torch.float32), dx.to(torch.float32), dy.to(torch.float32),
+        tgt))
+    return line_normal_sums(*projline_line_duv(jac, W), moments)
+
+
+def projline_linemom(out, dx, dy, tgt, coefs, jac, AY: int, AX: int):
+    """K7, K4's samples contracted line by line into the sums of the G2SP
+    LM normal equations (evaluation): the CUDA kernel for CUDA tensors (or
+    raises), ``projline_linemom_reference`` for CPU tensors.
+
+    out, dx, dy [B, V, W, C] float32, K4's contiguous outputs; tgt
+    [B, V, W, C] float32 target rows in line order, any strides with unit
+    channel stride (the model passes a transposed view of the satellite
+    features); coefs [B, V, 16] the lines K4 sampled (a sample K4 masks is
+    never read); jac [B, V, 24] float32 (``NJAC``): (h0, dh) of the line
+    under P and under dP/dpose_k, k = 0..2; AY x AX the ground map K4
+    sampled.  The CUDA kernel loads 8 channels at a time, so on the card C
+    must be a multiple of 8 and every row 16-byte aligned; it raises
+    otherwise.  Returns [B, V, 9] float32 in ``LINEMOM_IDX`` order.  It
+    has no gradient and raises if autograd would need one.
+    """
+    k = "projline_linemom"
+    if torch.is_grad_enabled() and any(t.requires_grad for t in
+                                       (out, dx, dy, tgt, coefs, jac)):
+        raise RuntimeError(f"{k} (K7) is evaluation-only and has no "
+                           "gradient; training contracts K4's samples with "
+                           "lm_update_implicit_pixel")
+    B, V, W, C = out.shape
+    _check_coefs(k, coefs, B, V, W, C)
+    for name, t in (("dx", dx), ("dy", dy), ("tgt", tgt)):
+        _check(tuple(t.shape) == (B, V, W, C), k,
+               f"{name} must be [{B}, {V}, {W}, {C}], got {tuple(t.shape)}")
+    _check(jac.dtype == torch.float32 and jac.is_contiguous()
+           and tuple(jac.shape) == (B, V, NJAC), k,
+           f"jac must be contiguous float32 [{B}, {V}, {NJAC}]")
+    if out.device.type == "cpu":
+        return projline_linemom_reference(out, dx, dy, tgt, coefs, jac, AY,
+                                          AX)
+    _check(out.device.type == "cuda", k, f"unsupported device {out.device}")
+    return _projline_linemom_op(out, dx, dy, tgt, coefs, jac, AY, AX)
+
+
+@torch.library.custom_op(
+    "highlyaccurate_tpu_torch::projline_linemom", mutates_args=(),
+    schema="(Tensor out, Tensor dx, Tensor dy, Tensor tgt, Tensor coefs, "
+           "Tensor jac, int AY, int AX) -> Tensor")
+def _projline_linemom_op(out, dx, dy, tgt, coefs, jac, AY, AX):
+    """Validate and launch K7 on the current stream."""
+    k = "projline_linemom"
+    dev = out.device
+    B, V, W, C = out.shape
+    _check(all(t.device == dev for t in (dx, dy, tgt, coefs, jac)), k,
+           f"every input must be on {dev}")
+    # the kernel loads 8 channels at a time, 32 bytes of each row
+    _check(C % 8 == 0, k, f"channel count must be a multiple of 8, got {C}")
+    for name, t in (("out", out), ("dx", dx), ("dy", dy)):
+        _check(t.dtype == torch.float32 and t.is_contiguous()
+               and t.data_ptr() % 16 == 0, k,
+               f"{name} must be contiguous 16-byte-aligned float32")
+    _check(tgt.dtype == torch.float32 and tgt.stride(3) == 1
+           and all(s % 4 == 0 for s in tgt.stride()[:3])
+           and tgt.data_ptr() % 16 == 0, k,
+           "tgt must be float32 with unit channel stride and 16-byte-aligned "
+           "rows")
+    lm = torch.empty(B, V, len(LINEMOM_IDX), dtype=torch.float32, device=dev)
+    fn = _entry("projline_sampler", "projline_linemom_launch",
+                (_P,) * 7 + (_I,) * 6 + (_L,) * 3 + (_P,))
+    _run(k, fn, dev, coefs.data_ptr(), jac.data_ptr(), out.data_ptr(),
+         dx.data_ptr(), dy.data_ptr(), tgt.data_ptr(), lm.data_ptr(), B, V,
+         W, AY, AX, C, *tgt.stride()[:3])
+    projline_linemom.launches += 1
+    return lm
+
+
+@_projline_linemom_op.register_fake
+def _(out, dx, dy, tgt, coefs, jac, AY, AX):
+    return out.new_empty(out.shape[0], out.shape[1], len(LINEMOM_IDX),
+                         dtype=torch.float32)
+
+
+projline_linemom.launches = 0

@@ -1,12 +1,13 @@
 """Pose updates (port of ``highlyaccurate_tpu/solver/updates.py:29-43,
 45-154, 156-248, 251-516, 519-620``): the S2GP and Ford LM update from K1's
 fused moments (evaluation) and from K2's line samples (training), the
-G2SP per-pixel update from K4's samples (both) or K6's fused moments
-(evaluation), and the gather sampler's updates: ``lm_update`` on a
-materialized Jacobian (``use_implicit_lm=0``, ``using_weight``, every
-family) and the S2GP / Ford per-pixel ``lm_update_implicit_pixel_norm``;
-and the other update rules on a materialized Jacobian: ``sgd_update`` and
-``adam_update`` (KITTI), ``gn_update`` and ``sgd_update_l1`` (Ford).
+G2SP per-pixel update from K4's samples (both), K6's fused moments
+(evaluation) or K7's per-line sums (evaluation), and the gather sampler's
+updates: ``lm_update`` on a materialized Jacobian (``use_implicit_lm=0``,
+``using_weight``, every family) and the S2GP / Ford per-pixel
+``lm_update_implicit_pixel_norm``; and the other update rules on a
+materialized Jacobian: ``sgd_update`` and ``adam_update`` (KITTI),
+``gn_update`` and ``sgd_update_l1`` (Ford).
 
 Pixel dropout (``dropout > 0``, the reference's random half of the
 pixels, models_kitti.py:968-974) keeps ``dropout_keep``'s pixels: one
@@ -36,7 +37,8 @@ import torch
 from highlyaccurate_tpu_torch.ops.banded_warp import (MOM_IDX,
                                                       channel_moments,
                                                       moment_sums)
-from highlyaccurate_tpu_torch.ops.projline import PIXMOM_IDX, pixel_moments
+from highlyaccurate_tpu_torch.ops.projline import (LINEMOM_IDX, PIXMOM_IDX,
+                                                   pixel_moments)
 
 
 # shifts leaving (-REINIT_RANGE, REINIT_RANGE) are redrawn in [-1, 1)
@@ -565,6 +567,25 @@ def lm_update_pixel_moments(pose, pm, duv, damping_param, cfg: LMConfig):
                     for k in ("sxx", "sxy", "syy", "rx", "ry"))
     return _pixel_solve(pose, duv[..., 0, :].to(f32), duv[..., 1, :].to(f32),
                         moments, damping_param, cfg)
+
+
+def lm_update_line_moments(pose, lm, damping_param, cfg: LMConfig):
+    """The G2SP LM update from K7's per-line sums: the H and g of
+    ``lm_update_implicit_pixel``, up to the order of the sums, already
+    contracted over each line's samples by the kernel.
+
+    lm [B, V, 9] per-line sums in ``LINEMOM_IDX`` order (H's six unique
+    entries, then g), summed here over the lines.  Evaluation only; the
+    damping used raw as ``cfg`` says; no re-init.
+    """
+    s = lm.to(torch.float32).sum(1)                        # [B, 9]
+    hess = torch.stack([s[:, LINEMOM_IDX[k]] for k in (
+        "h00", "h01", "h02", "h01", "h11", "h12", "h02", "h12", "h22")],
+        -1).reshape(-1, 3, 3)
+    g = s[:, LINEMOM_IDX["g0"]:]
+    act = list(cfg.active_dims)
+    return _solve_and_reinit(pose, hess[:, act][:, :, act], g[:, act],
+                             damping_param, cfg._replace(reinit=False), None)
 
 
 def lm_information(out, dx, dy, target, mask, duv, active_dims,

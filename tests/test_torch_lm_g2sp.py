@@ -189,7 +189,9 @@ def test_trajectory_matches_jax():
     assert np.abs(want).max() > 1e-3
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
     # the training forward samples the same bf16 map through the autograd
-    # function: the same poses, bit for bit
+    # function and contracts K4's samples in torch (lm_update_implicit_pixel
+    # on g2sp_uv_jac), where evaluation contracts them line by line (K7's
+    # plain version): the same poses up to the order of the sums
     gt = torch.zeros(B, 3)
     with torch.no_grad():
         test = port(torch.from_numpy(sat), torch.from_numpy(grd),
@@ -198,9 +200,9 @@ def test_trajectory_matches_jax():
                torch.from_numpy(k), mode="train", gt_pose=gt)
     assert out.loss.requires_grad
     # loss_func method 0 against a zero gt: the last-level L1 errors
-    np.testing.assert_array_equal(
+    np.testing.assert_allclose(
         out.shift_lat_last[-1].detach().numpy(),
-        np.abs(test[0].numpy()).mean())
+        np.abs(test[0].numpy()).mean(), rtol=1e-5, atol=0)
 
 
 def test_localizer_matches_jax():

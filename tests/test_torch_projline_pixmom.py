@@ -20,8 +20,10 @@
 * ``LMG2SP`` trajectories (128x128 satellite, 64x256 ground, level 3, 2
   iterations): against JAX with ``use_banded_warp=2`` atol 1e-4 on the pose,
   the limit of the K4 path (tests/test_torch_lm_g2sp.py; measured 8.1e-6);
-  against the port's own K4 path on the same weights, bit for bit: on the
-  CPU both run the plain K4 and the same five channel sums.
+  against the port's own K4 path on the same weights (K4, then K7's plain
+  version): atol 1e-5, the same samples with the sums over pixels taken
+  line by line and the per-pixel Jacobian formed from each line's affine
+  points (measured 4.0e-7 over 6 rounds).
 * The CUDA kernel against the plain version, on the card only:
   |err| <= 1e-5 x max|plain lane| + 1e-6, also on the hand-made lines
   written straight into lanes 0-5, and a second launch bit for bit; it
@@ -262,7 +264,7 @@ def test_g2sp_pixmom_trajectory_matches_jax_and_k4_path():
     assert got.shape == want.shape == (B, TINY["N_iters"], 3, 3)
     assert np.abs(want).max() > 1e-3
     np.testing.assert_allclose(got, want, atol=1e-4, rtol=0)
-    np.testing.assert_array_equal(got, k4_path)
+    np.testing.assert_allclose(got, k4_path, atol=1e-5, rtol=0)
 
 
 def test_g2sp_pixmom_localizer_and_training_keep_k4():
