@@ -32,11 +32,11 @@ def weight_shapes() -> dict:
     return shapes
 
 
-def draw_weights(seed: int, direction: str, damping: float, device) -> dict:
+def draw_weights(seed: int, damping: float, device) -> dict:
     """Float32 weights on ``device``: every conv kernel LeCun-normal
     (variance 1 / fan_in) clamped at +-2 standard deviations, from one
-    normal draw of them all; zero biases; the damping 0 (S2GP) or the
-    configuration's (G2SP), as the model initialises it."""
+    normal draw of them all; zero biases; the damping ``damping``, as the
+    model initialises it (the reference's ``initial_damping``)."""
     shapes = weight_shapes()
     kernels = [k for k, s in shapes.items() if len(s) == 4]
     sizes = [math.prod(shapes[k]) for k in kernels]
@@ -49,7 +49,7 @@ def draw_weights(seed: int, direction: str, damping: float, device) -> dict:
         out[k] = (part.clamp(-TRUNCATE, TRUNCATE) * std).view(shape)
     for k, s in shapes.items():
         if k not in out:
-            fill = damping if (k == "damping" and direction == "G2SP") else 0
+            fill = damping if k == "damping" else 0
             out[k] = torch.full(s, float(fill), device=device)
     return out
 

@@ -74,8 +74,8 @@ def execute(cell: spec.Cell, seed: int, seconds: float, traced: bool,
               "attempted": stats["attempted"],
               "failed": stats["failed"]}
     if traced:
-        tr.model, tr.route, tr.traffic = (cell.config["model"], cell.route,
-                                          cell.traffic)
+        tr.model, tr.route, tr.traffic, tr.reference = (
+            cell.config["model"], cell.route, cell.traffic, cell.reference)
         metrics = {}
         for m in cell.per_layer:
             v = spec.metric_reader(m["name"])(tr)

@@ -10,15 +10,6 @@ import numpy as np
 import torch
 
 from benchmark.harness import check, inputs
-from benchmark.reference import g2sp, s2gp
-
-def camera_k(model: dict) -> np.ndarray:
-    """The default KITTI intrinsics (of the 1024 x 256 input) scaled to
-    the configured input."""
-    k = g2sp.DEFAULT_K.copy()
-    k[0] *= model["grd_w"] / 1024.0
-    k[1] *= model["grd_h"] / 256.0
-    return k
 
 
 def port_config(cell):
@@ -45,8 +36,8 @@ class Serve:
     def make_inputs(self):
         """The seeded weights and frame pool, which both sides read."""
         m = self.cell.config["model"]
-        self.weights = inputs.draw_weights(self.w_seed, m["direction"],
-                                           m.get("damping", 0.1), self.device)
+        self.weights = inputs.draw_weights(
+            self.w_seed, self.cell.reference.initial_damping(m), self.device)
         self.sat, self.grd = inputs.frame_pool(
             self.f_seed, self.pool_n, self.batch, m["sat_size"], m["grd_h"],
             m["grd_w"], self.cell.traffic["octaves"], self.device)
@@ -58,11 +49,10 @@ class Serve:
         self.make_inputs()
         self.phases["inputs"] = time.perf_counter() - t
         self.cfg = port_config(self.cell)
-        g2sp = m["direction"] == "G2SP"
         self.loc = Localizer(self.cfg, random_init=True,
                              batch_size=self.batch, seed=self.g_seed,
                              device=self.device,
-                             camera_k=camera_k(m) if g2sp else None)
+                             **self.cell.reference.localizer_inputs(m))
         self.loc.model.load_state_dict(self.weights)
         self.phases["program"] = time.perf_counter() - t
         for i in range(self.cell.traffic["warm_calls"]):
@@ -74,10 +64,9 @@ class Serve:
         t0 = time.perf_counter()
         out = self.loc.predict(self.sat[p], self.grd[p])
         dt = time.perf_counter() - t0
-        m = self.cell.config["model"]
-        pose = np.stack([out["longitudinal_m"] / m["shift_range_lon"],
-                         out["lateral_m"] / m["shift_range_lat"],
-                         out["heading_deg"] / m["rotation_range"]], -1)
+        m, ref = self.cell.config["model"], self.cell.reference
+        pose = np.stack([out[k] / m[r] for k, r in
+                         zip(ref.POSE_KEYS, ref.POSE_RANGES)], -1)
         if keep:
             self.outs.append((self.calls, p, pose))
         self.calls += 1
@@ -127,16 +116,15 @@ class Serve:
     def _draws(self, calls) -> dict:
         """The re-init numbers each of ``calls`` drew: the program's
         generator replayed from its seed, call by call."""
-        m = self.cell.config["model"]
-        if m["direction"] != "S2GP":
-            return {}
-        n = m["N_iters"] * 3 * 2 * self.batch
+        rounds, per_image = self.cell.reference.reinit_draws(
+            self.cell.config["model"])
         g = torch.Generator(device=self.device).manual_seed(self.g_seed)
         out = {}
         for c in range(max(calls) + 1):
-            d = torch.rand((n,), generator=g, device=self.device) * 2 - 1
+            d = torch.rand((rounds * per_image * self.batch,), generator=g,
+                           device=self.device) * 2 - 1
             if c in calls:
-                out[c] = d.view(-1, 2, self.batch)
+                out[c] = d.view(rounds, per_image, self.batch)
         return out
 
     @torch.no_grad()
@@ -146,7 +134,7 @@ class Serve:
         blocks of ``check_rows``, the rounds of those in ``idx``."""
         route, model = self.cell.route, self.cell.config["model"]
         rows = self.cell.traffic["check_rows"]
-        ref = g2sp if model["direction"] == "G2SP" else s2gp
+        ref = self.cell.reference
         out = []
         with check.precision(mode or route["precision"]) as mode:
             for i in range(0, self.batch, rows):

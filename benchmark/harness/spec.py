@@ -3,8 +3,10 @@ the checkout names the cell's configuration and traffic; each lives in a
 file of its own under this folder (``configs/<config>.json``,
 ``traffic/<traffic>.json``, ``limits/<workload>.json``), and each
 per-layer metric is a reader ``metrics/<name>.py`` (or one
-``metrics/<base>.py`` for every ``<base>.<suffix>``).  Adding a cell adds
-files and entries; no code here names one."""
+``metrics/<base>.py`` for every ``<base>.<suffix>``).  A configuration
+names its model family's plain reference, ``reference/<name>.py``, which
+answers everything that differs by family.  Adding a cell, or a family,
+adds files and entries; no code here names one."""
 
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import dataclasses
 import importlib.util
 import json
 import os
+import re
 from pathlib import Path
 
 HERE = Path(__file__).resolve().parents[1]       # the benchmark's folder
@@ -42,6 +45,7 @@ class Cell:
     limits: dict          # limits/<workload>.json
     end_to_end: list      # BENCHMARK.json entries this cell reports
     per_layer: list
+    reference: object     # reference/<config's "reference">.py, loaded
 
     @property
     def route(self) -> dict:
@@ -68,11 +72,36 @@ def resolve(workload: str, root: Path = ROOT) -> Cell:
     names = {m["name"] for m in e2e}
     per_layer = [m for m in bench["per_layer"]
                  if _reports(m, workload, names)]
-    return Cell(name=workload, chips=int(w["chips"]),
-                config=load_json(root / configs[w["config"]]["file"]),
+    config_file = configs[w["config"]]["file"]
+    config = load_json(root / config_file)
+    return Cell(name=workload, chips=int(w["chips"]), config=config,
                 traffic=load_json(here / "traffic" / f"{w['traffic']}.json"),
                 limits=load_json(here / "limits" / f"{workload}.json"),
-                end_to_end=e2e, per_layer=per_layer)
+                end_to_end=e2e, per_layer=per_layer,
+                reference=reference_module(config, config_file, root))
+
+
+def reference_module(config: dict, config_file: str, root: Path = ROOT):
+    """The module ``reference/<name>.py`` that ``config`` names under
+    ``"reference"``; raises ValueError where it names none, or no such
+    file."""
+    name = config.get("reference")
+    if not isinstance(name, str) or not re.fullmatch(r"[A-Za-z0-9_]+", name):
+        raise ValueError(f"{config_file} names no reference module: it "
+                         f"needs \"reference\": \"<name>\" of a file "
+                         f"{HERE.name}/reference/<name>.py")
+    path = root / HERE.name / "reference" / f"{name}.py"
+    if not path.is_file():
+        raise ValueError(f"{config_file} names the reference {name!r}, "
+                         f"but there is no {path.relative_to(root)}")
+    return _load(f"benchmark_reference_{name}", path)
+
+
+def _load(module_name: str, path: Path):
+    spec = importlib.util.spec_from_file_location(module_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metric_reader(name: str, root: Path = ROOT):
@@ -83,8 +112,4 @@ def metric_reader(name: str, root: Path = ROOT):
     path = folder / f"{name}.py"
     if not path.exists():
         path = folder / f"{name.split('.', 1)[0]}.py"
-    spec = importlib.util.spec_from_file_location(
-        f"benchmark_metric_{name.replace('.', '_')}", path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return _load(f"benchmark_metric_{name.replace('.', '_')}", path).read

@@ -26,6 +26,7 @@ class Trace:
     model: dict = None               # the configuration's model settings
     route: dict = None
     traffic: dict = None
+    reference: object = None         # the configuration's reference module
 
     def kernels(self):
         """(name, dur_us) of the kernels: device ops other than copies and

@@ -6,6 +6,7 @@ follows those steps from the same weights."""
 
 from __future__ import annotations
 
+import importlib
 import time
 
 import numpy as np
@@ -13,7 +14,7 @@ import torch
 
 from benchmark.harness import check, inputs
 from benchmark.harness.serve import port_config
-from benchmark.reference import s2gp, vgg
+from benchmark.reference import vgg
 
 BETAS, EPS = (0.9, 0.999), 1e-8        # the optimizer the program states
 BRANCHES = ("SatFeatureNet", "GrdFeatureNet")
@@ -34,27 +35,34 @@ class Train:
     def make_inputs(self):
         """The seeded weights, frame pool and poses, which both sides
         read."""
-        m = self.cell.config["model"]
-        self.weights = inputs.draw_weights(self.w_seed, m["direction"],
-                                           m.get("damping", 0.1), self.device)
+        m, ref = self.cell.config["model"], self.cell.reference
+        self.weights = inputs.draw_weights(
+            self.w_seed, ref.initial_damping(m), self.device)
         self.sat, self.grd = inputs.frame_pool(
             self.f_seed, self.pool_n, self.batch, m["sat_size"], m["grd_h"],
             m["grd_w"], self.cell.traffic["octaves"], self.device)
         self.gt = inputs.pose_pool(self.s_seed, self.pool_n, self.batch)
 
     def setup(self):
-        from highlyaccurate_tpu_torch.models.lm_s2gp import LMS2GP
         from highlyaccurate_tpu_torch.train.state import create_train_state
-        from highlyaccurate_tpu_torch.train.step import make_train_step
+        from highlyaccurate_tpu_torch.train.step import (make_train_step,
+                                                         to_device)
         t = time.perf_counter()
         self.make_inputs()
         self.phases["inputs"] = time.perf_counter() - t
         self.cfg = port_config(self.cell)
-        self.model = LMS2GP(self.cfg, device=self.device)
+        m, ref = self.cell.config["model"], self.cell.reference
+        module, name = ref.MODEL_CLASS.rsplit(".", 1)
+        model_class = getattr(importlib.import_module(module), name)
+        self.model = model_class(self.cfg, device=self.device)
         self.model.load_state_dict(self.weights)
         self.model.train()
         self.state = create_train_state(self.cfg, self.model)
-        self.step_fn = make_train_step(self.model, self.cfg)
+        self.step_fn = make_train_step(self.model, self.cfg,
+                                       **ref.step_options(m))
+        dev = torch.device(self.device)
+        self.step_extras = [to_device(x, dev)
+                            for x in ref.step_inputs(m, self.batch)]
         self.gen = torch.Generator(device=self.device).manual_seed(
             self.g_seed)
         self.phases["program"] = time.perf_counter() - t
@@ -69,8 +77,8 @@ class Train:
 
     def step(self):
         sat, grd, gt = self._feed(self.steps % self.pool_n)
-        self.state, metrics = self.step_fn(self.state, sat, grd, gt,
-                                           self.gen)
+        self.state, metrics = self.step_fn(self.state, sat, grd,
+                                           *self.step_extras, gt, self.gen)
         self.steps += 1
         return metrics["loss"]
 
@@ -183,12 +191,13 @@ class Train:
         theta = {k: v.clone().requires_grad_(True)
                  for k, v in self.weights.items()}
         adam = {}
+        ref = self.cell.reference
         g = torch.Generator(device=self.device).manual_seed(self.g_seed)
-        rounds = model["N_iters"] * 3
+        rounds, per_image = ref.reinit_draws(model)
         losses, grad1 = [], {}
         for step in range(1, n + 1):
             p = (step - 1) % self.pool_n
-            draws = [torch.rand((2, self.batch), generator=g,
+            draws = [torch.rand((per_image, self.batch), generator=g,
                                 device=self.device) * 2 - 1
                      for _ in range(rounds)]
             grads = {k: None for k in theta}
@@ -200,10 +209,10 @@ class Train:
                 grd = inputs.to_float(torch.from_numpy(
                     self.grd[p][sl]).to(self.device))
                 gt = torch.from_numpy(self.gt[p][sl]).to(self.device)
-                traj = s2gp.trajectory(theta, sat, grd, conf,
-                                       lambda t: draws[t][:, sl], mode,
-                                       route["sampler"])
-                part = s2gp.loss(traj, gt).sum() / B
+                traj = ref.trajectory(theta, sat, grd, conf,
+                                      lambda t: draws[t][:, sl], mode,
+                                      route["sampler"])
+                part = ref.loss(traj, gt).sum() / B
                 total += float(part.detach())
                 keys = list(theta)
                 gs = torch.autograd.grad(part, [theta[k] for k in keys],

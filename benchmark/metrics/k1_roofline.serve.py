@@ -10,6 +10,6 @@ def read(t):
     us, n = t.time_us("banded_moments")
     if not n:
         return None
-    least = counts.k1_bytes(t.model, t.traffic["batch"]) * t.calls \
-        / counts.PEAK_BYTES
+    least = counts.k1_bytes({**t.model, **t.route}, t.traffic["batch"],
+                            t.reference) * t.calls / counts.PEAK_BYTES
     return 100.0 * least / (us / 1e6)

@@ -10,7 +10,6 @@ def read(t):
     us, n = t.time_us("projline_sample_kernel")
     if not n:
         return None
-    least = counts.k4_bytes(t.model, t.traffic["batch"],
-                            t.route["g2sp_restrict_grid"]) * t.calls \
-        / counts.PEAK_BYTES
+    least = counts.k4_bytes({**t.model, **t.route}, t.traffic["batch"],
+                            t.reference) * t.calls / counts.PEAK_BYTES
     return 100.0 * least / (us / 1e6)

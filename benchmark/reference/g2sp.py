@@ -15,11 +15,16 @@ The banded deployment's sampler (``use_banded_warp=1``): each satellite
 column is a line in the ground map; a column whose image line is steeper
 than 0.95, spans more rows than the map minus 3, or has no in-map part is
 dropped, and a sample behind the camera, outside the map or on its last
-row or column reads zero; the map is read in bfloat16.
+row or column reads zero; the map is read in bfloat16 (its gradient stays
+float32).
+
+Training scores the trajectory as S2GP does (``loss``).  What the harness
+asks of a family is listed in ``s2gp``'s docstring.
 """
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 
@@ -27,7 +32,9 @@ import numpy as np
 import torch
 
 from benchmark.reference import vgg
-from benchmark.reference.s2gp import CAMERA_HEIGHT, meter_per_pixel
+from benchmark.reference.s2gp import (  # noqa: F401 (the family's answers)
+    CAMERA_HEIGHT, POSE_KEYS, POSE_RANGES, loss, meter_per_pixel,
+    step_options, touched_cells)
 
 DEFAULT_K = np.array([[582.9802, 0.0, 496.2420],
                       [0.0, 482.7076, 125.0034],
@@ -237,8 +244,9 @@ def trajectory(params, sat, grd, cfg: dict, draws=None,
         A = sat_f[lvl].shape[1]
         h, w = grd_f[lvl].shape[1:3]
         X, k, j0 = level_geometry(cfg, A, h, w, dev)
-        gmap = grd_f[lvl].to(torch.bfloat16).float() if rule == "line" \
-            else grd_f[lvl].float()
+        gmap = grd_f[lvl].float()
+        if rule == "line":      # read in bf16, differentiated in float32
+            gmap = gmap + (gmap.to(torch.bfloat16).float() - gmap).detach()
         levels.append((X, k[None].expand(gmap.shape[0], 3, 3), gmap,
                        sat_f[lvl].float()[:, :, j0:].transpose(1, 2)))
     B = sat_f[0].shape[0]
@@ -253,3 +261,83 @@ def trajectory(params, sat, grd, cfg: dict, draws=None,
                            cfg["damping"])
             traj.append(pose)
     return torch.stack(traj, 1).reshape(B, cfg["N_iters"], len(slots), 3)
+
+
+# --- what the harness asks of the family -----------------------------------
+# (``POSE_KEYS``, ``POSE_RANGES``, ``loss`` and ``step_options`` are
+# S2GP's, imported above: the same pose order, loss and step keywords)
+
+MODEL_CLASS = "highlyaccurate_tpu_torch.models.lm_g2sp.LMG2SP"
+
+
+def reinit_draws(cfg: dict) -> tuple:
+    """(rounds, uniform numbers an image a round) that the program's
+    generator draws per call: G2SP never re-inits."""
+    return cfg["N_iters"] * 3, 0
+
+
+def initial_damping(cfg: dict) -> float:
+    """The solver's damping weight as the model initialises it: the
+    configuration's."""
+    return cfg["damping"]
+
+
+def camera_k(cfg: dict) -> np.ndarray:
+    """The default KITTI intrinsics (of the 1024 x 256 input) scaled to
+    the configured input."""
+    k = DEFAULT_K.copy()
+    k[0] *= cfg["grd_w"] / 1024.0
+    k[1] *= cfg["grd_h"] / 256.0
+    return k
+
+
+def localizer_inputs(cfg: dict) -> dict:
+    """``Localizer`` keyword arguments beside the configuration: the
+    camera of every call."""
+    return {"camera_k": camera_k(cfg)}
+
+
+def step_inputs(cfg: dict, batch: int) -> tuple:
+    """Host arrays the train step takes after the frames: every image's
+    camera [B, 3, 3]."""
+    return (np.repeat(camera_k(cfg)[None], batch, 0),)
+
+
+def _zero_pose(cfg: dict, A: int, h: int, w: int):
+    """The samples of one level at the zero pose: the ground map cells'
+    top-left corners r0, c0 and the banded sampler's mask [1, V, A], and V,
+    the satellite columns served."""
+    ranges = (cfg["rotation_range"], cfg["shift_range_lat"],
+              cfg["shift_range_lon"])
+    X, k, _ = level_geometry(cfg, A, h, w, "cpu")
+    P, _ = projection(torch.zeros(1, 3), k[None], ranges)
+    valid = lines_valid(P, X[:, 0], X[:, 1], h, w, X.shape[1])
+    x, y, _, _, m = image_points(P, X, valid, h, w)
+    keep = m > 0
+    r0 = torch.where(keep, torch.floor(y), torch.zeros_like(y)).long()
+    c0 = torch.where(keep, torch.floor(x), torch.zeros_like(x)).long()
+    return r0, c0, m, X.shape[0]
+
+
+def map_cells(cfg: dict) -> tuple:
+    """Per level, (the ground map cells the served satellite columns'
+    samples touch at the zero pose, the columns served), under the
+    route's ``g2sp_restrict_grid``."""
+    return _footprint(tuple(sorted(cfg.items())))[0]
+
+
+def kept_samples(cfg: dict) -> tuple:
+    """Per level, the samples the banded sampler keeps at the zero pose
+    (in the map, in front of the camera, on a served line)."""
+    return _footprint(tuple(sorted(cfg.items())))[1]
+
+
+@functools.lru_cache(maxsize=None)
+def _footprint(items: tuple) -> tuple:
+    cfg = dict(items)
+    cells, kept = [], []
+    for A, C, h, w in vgg.levels(cfg):
+        r0, c0, m, V = _zero_pose(cfg, A, h, w)
+        cells.append((touched_cells(r0, c0, m, w), V))
+        kept.append(int((m > 0).sum()))
+    return tuple(cells), tuple(kept)

@@ -21,10 +21,20 @@ Two sampling rules, as the deployment states them (``rule``):
     map than its window (RB - 3) is dropped, a sample on the last map row
     or column is dropped, and with ``bf16_map`` the map is read rounded to
     bfloat16 (its gradient stays float32).
+
+A configuration names its family's module (``"reference"`` in
+``configs/<config>.json``); the harness asks it, and nothing else, what
+differs by family: ``trajectory`` and ``loss``, the program's model class
+(``MODEL_CLASS``), the order of the pose terms and their ranges
+(``POSE_KEYS``, ``POSE_RANGES``), the re-init numbers (``reinit_draws``),
+the starting damping (``initial_damping``), what the program takes beside
+the frames (``localizer_inputs``, ``step_inputs``, ``step_options``) and
+the map footprint the roofline counts read (``map_cells``).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -298,3 +308,73 @@ def loss(traj, gt_pose, coe: float = 100.0):
     """Loss method 0 of each sample [B]: the mean over (iteration, level)
     of coe times the absolute error of each pose term."""
     return coe * (traj - gt_pose[:, None, None, :]).abs().sum(-1).mean((1, 2))
+
+
+# --- what the harness asks of the family -----------------------------------
+
+MODEL_CLASS = "highlyaccurate_tpu_torch.models.lm_s2gp.LMS2GP"
+# the trajectory's pose terms as keys of ``Localizer.predict``'s output, and
+# the ranges that normalize each
+POSE_KEYS = ("longitudinal_m", "lateral_m", "heading_deg")
+POSE_RANGES = ("shift_range_lon", "shift_range_lat", "rotation_range")
+
+
+def reinit_draws(cfg: dict) -> tuple:
+    """(rounds, uniform numbers an image a round) that the program's
+    generator draws per call for the re-init: two a round, one per
+    shift."""
+    return cfg["N_iters"] * 3, 2
+
+
+def initial_damping(cfg: dict) -> float:
+    """The solver's damping weight as the model initialises it."""
+    return 0.0
+
+
+def localizer_inputs(cfg: dict) -> dict:
+    """``Localizer`` keyword arguments beside the configuration."""
+    return {}
+
+
+def step_inputs(cfg: dict, batch: int) -> tuple:
+    """Host arrays the train step takes after the frames, before the
+    ground-truth pose."""
+    return ()
+
+
+def step_options(cfg: dict) -> dict:
+    """``make_train_step`` keyword arguments beside the model and
+    configuration."""
+    return {}
+
+
+def touched_cells(r0, c0, m, side: int) -> int:
+    """How many map cells the 2x2 blocks at (r0, c0) of the samples m
+    keeps touch, on a map ``side`` cells wide."""
+    keep = m.reshape(-1) > 0
+    base = (r0 * side + c0).reshape(-1)[keep]
+    return int(torch.cat([base, base + 1, base + side,
+                          base + side + 1]).unique().numel())
+
+
+def map_cells(cfg: dict) -> tuple:
+    """Per level, the satellite map cells the kept rows' samples touch at
+    the zero pose: what one image's banded sampling must read of its map
+    (the footprint moves with the pose; its size stays)."""
+    return _map_cells(tuple(sorted(cfg.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _map_cells(items: tuple) -> tuple:
+    cfg = dict(items)
+    ranges = (cfg["rotation_range"], cfg["shift_range_lat"],
+              cfg["shift_range_lon"])
+    out = []
+    for A, C, h, w in vgg.levels(cfg):
+        xyz, mask = rays(h, w, cfg["grd_h"], cfg["grd_w"])
+        uv, _ = uv_jac(torch.zeros(1, 3), torch.from_numpy(
+            xyz[h // 2:]), A, ranges)
+        r0, c0, _, _, m = line_cells(uv, A)
+        out.append(touched_cells(r0, c0, m * torch.from_numpy(
+            mask[h // 2:]), A))
+    return tuple(out)

@@ -100,6 +100,18 @@ def features(p: dict, prefix: str, img, slots=(0, 1, 2),
     return [_l2norm(maps[s]).permute(0, 2, 3, 1) for s in slots]
 
 
+def levels(model: dict, slots=(0, 1, 2)):
+    """(A, C, h, w) of each kept level: satellite side, channels, ground
+    feature rows and columns, of the sizes in ``model`` (``sat_size``,
+    ``grd_h``, ``grd_w``)."""
+    out = []
+    for s in slots:
+        f = 2 ** (3 - s)
+        out.append((model["sat_size"] // f, CHANNELS[s],
+                    model["grd_h"] // f, model["grd_w"] // f))
+    return out
+
+
 def conv_layers(slots=(0, 1, 2)):
     """(cin, cout, f) of every 3x3 conv one branch's forward runs for
     ``slots``, the confidence heads of those slots included (the program

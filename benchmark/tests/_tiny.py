@@ -6,8 +6,8 @@ from benchmark.harness import spec
 TINY = dict(sat_size=128, grd_h=64, grd_w=256, N_iters=2)
 
 
-def tiny_cell(workload: str) -> spec.Cell:
-    cell = spec.resolve(workload)
+def tiny_cell(workload: str, root=spec.ROOT) -> spec.Cell:
+    cell = spec.resolve(workload, root)
     cell.config["model"].update(TINY)
     cell.traffic.update(batch=4, check_rows=2, warm_calls=1, trace_calls=2)
     if "check" in cell.traffic:

@@ -1,15 +1,20 @@
-"""The benchmark's cells resolve to their files by name, and a cell added
-as files and entries is found with no edit to any file."""
+"""The benchmark's cells resolve to their files by name, and a cell, or a
+model family, added as files and entries is found and run with no edit to
+any file; no harness module names a family."""
 
+import ast
 import hashlib
 import json
 import re
 import shutil
+import time
+from pathlib import Path
 
 import pytest
+import torch
 
-from benchmark.harness import spec
-from benchmark.tests._tiny import workloads
+from benchmark.harness import runner, spec
+from benchmark.tests._tiny import tiny_cell, workloads
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 
@@ -56,12 +61,52 @@ def _digest(root):
             and "__pycache__" not in p.parts}
 
 
-def test_an_added_cell_is_found_without_editing_a_file(tmp_path):
+def _checkout(tmp_path) -> Path:
+    """A copy of the benchmark's folder and BENCHMARK.json in tmp_path;
+    its folder."""
     shutil.copytree(spec.HERE, tmp_path / "benchmark",
                     ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(spec.ROOT / "BENCHMARK.json", tmp_path)
-    before = _digest(tmp_path / "benchmark")
-    here = tmp_path / "benchmark"
+    return tmp_path / "benchmark"
+
+
+def _add_cell(root, workload, config, traffic, limits_of):
+    """Entries for ``workload`` (of ``config``, a file ``configs/<config>
+    .json`` already written) in root's BENCHMARK.json, its limits those
+    of the cell ``limits_of``, and the cell on the end-to-end metrics its
+    route reports."""
+    here = root / "benchmark"
+    shutil.copy(here / "limits" / f"{limits_of}.json",
+                here / "limits" / f"{workload}.json")
+    b = json.loads((root / "BENCHMARK.json").read_text())
+    if config not in {c["name"] for c in b["configs"]}:
+        b["configs"].append({"name": config, "source": "x", "reduced": [],
+                             "file": f"benchmark/configs/{config}.json",
+                             "why": "test"})
+    b["workloads"].append({"name": workload, "config": config,
+                           "traffic": traffic, "chips": 1, "why": "test"})
+    route = json.loads((here / "traffic" / f"{traffic}.json").read_text())[
+        "route"]
+    for m in b["end_to_end"]:
+        if m["name"] == f"{route}_fps":
+            m["workloads"].append(workload)
+    (root / "BENCHMARK.json").write_text(json.dumps(b))
+
+
+def _run(workload, root):
+    cell = tiny_cell(workload, root)
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        return cell, runner.execute(cell, 2 ** 31 + 23, 0.0, False, "cpu",
+                                    time.perf_counter())
+    finally:
+        torch.set_num_threads(n)
+
+
+def test_an_added_cell_is_found_without_editing_a_file(tmp_path):
+    here = _checkout(tmp_path)
+    before = _digest(here)
     cfg = json.loads((here / "configs" / "s2gp.json").read_text())
     cfg["model"]["N_iters"] = 3
     (here / "configs" / "s2gp-nit3.json").write_text(json.dumps(cfg))
@@ -101,3 +146,82 @@ def test_an_added_cell_is_found_without_editing_a_file(tmp_path):
     assert read(T()) == 48.0
     after = _digest(here)
     assert all(after[p] == h for p, h in before.items())
+
+
+def test_an_added_family_runs_without_editing_a_file(tmp_path):
+    """A configuration whose reference module exists only as a new file
+    (here the S2GP reference under another name) is served and trained,
+    each run correct, with every file that was there unchanged."""
+    here = _checkout(tmp_path)
+    before = _digest(here)
+    shutil.copy(here / "reference" / "s2gp.py",
+                here / "reference" / "kitti_twin.py")
+    cfg = json.loads((here / "configs" / "s2gp.json").read_text())
+    cfg["reference"] = "kitti_twin"
+    (here / "configs" / "twin.json").write_text(json.dumps(cfg))
+    _add_cell(tmp_path, "twin-serve-b128", "twin", "serve_u8_b128",
+              "s2gp-serve-b128")
+    _add_cell(tmp_path, "twin-train-b16", "twin", "train_b16",
+              "s2gp-train-b16")
+    for workload in ("twin-serve-b128", "twin-train-b16"):
+        cell, r = _run(workload, tmp_path)
+        assert Path(cell.reference.__file__) == (here / "reference"
+                                                 / "kitti_twin.py")
+        assert r["correct"], (workload, r["checks"])
+        assert set(r["metrics"]) == {m["name"] for m in cell.end_to_end}
+    after = _digest(here)
+    assert all(after[p] == h for p, h in before.items())
+
+
+@pytest.mark.parametrize("fault", (None, "state_unchanged"))
+def test_g2sp_trains_from_its_configuration_alone(tmp_path, fault,
+                                                  monkeypatch):
+    """G2SP, which no cell trains, gets a train route in a copy of its
+    configuration: the step's model and inputs come from its reference
+    module, and the run is correct under the S2GP training cell's limits
+    (and not correct where the step leaves its state unchanged)."""
+    here = _checkout(tmp_path)
+    cfg = json.loads((here / "configs" / "g2sp.json").read_text())
+    cfg["routes"]["train"] = json.loads(
+        (here / "configs" / "s2gp.json").read_text())["routes"]["train"]
+    (here / "configs" / "g2sp-trainable.json").write_text(json.dumps(cfg))
+    _add_cell(tmp_path, "g2sp-train-b16", "g2sp-trainable", "train_b16",
+              "s2gp-train-b16")
+    if fault:
+        monkeypatch.setattr(torch.optim.Adam, "step", lambda self, *a: None)
+    _, r = _run("g2sp-train-b16", tmp_path)
+    assert r["correct"] == (fault is None), r["checks"]
+
+
+def test_a_configuration_must_name_its_reference(tmp_path):
+    here = _checkout(tmp_path)
+    cfg = json.loads((here / "configs" / "s2gp.json").read_text())
+    del cfg["reference"]
+    (here / "configs" / "s2gp.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="names no reference module"):
+        spec.resolve("s2gp-serve-b128", root=tmp_path)
+    cfg["reference"] = "absent"
+    (here / "configs" / "s2gp.json").write_text(json.dumps(cfg))
+    with pytest.raises(ValueError, match="there is no"):
+        spec.resolve("s2gp-serve-b128", root=tmp_path)
+
+
+def test_the_harness_names_no_family():
+    """No harness module names a family, reads the direction or imports a
+    family's reference module: of the references only ``vgg``, the
+    backbone every family shares."""
+    for path in sorted((spec.HERE / "harness").glob("*.py")):
+        text = path.read_text()
+        for word in ("S2GP", "G2SP", "direction"):
+            assert word not in text, (path.name, word)
+        for node in ast.walk(ast.parse(text)):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [f"{node.module}.{a.name}" for a in node.names]
+            else:
+                continue
+            for name in names:
+                parts = name.split(".")
+                if parts[:2] == ["benchmark", "reference"]:
+                    assert parts[2:3] == ["vgg"], (path.name, name)

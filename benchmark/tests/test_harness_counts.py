@@ -6,7 +6,8 @@ import types
 import pytest
 from torch.autograd import DeviceType
 
-from benchmark.harness import counts, trace
+from benchmark.harness import counts, spec, trace
+from benchmark.reference import g2sp, s2gp
 
 MODEL = dict(sat_size=64, grd_h=32, grd_w=128, N_iters=2)
 
@@ -39,30 +40,56 @@ def test_k1_k3_k4_bytes_by_hand():
     B = 2
     lv = [(16, 256, 8, 32), (32, 128, 16, 64), (64, 64, 32, 128)]
     assert counts.levels(MODEL_FULL) == lv
-    items = tuple(sorted(MODEL_FULL.items()))
-    cells = counts.s2gp_map_cells(items)
+    cells = s2gp.map_cells(MODEL_FULL)
     k1 = sum(B * (n * C * 2 + (h // 2) * w * C * 4 + (h // 2) * 32
                   + (h // 2) * 192) + (h // 2) * w * 4
              for (A, C, h, w), n in zip(lv, cells)) * 2
     k3 = sum(B * (3 * (h // 2) * w * C * 4 + (h // 2) * 32 + A * A * C * 4)
              for A, C, h, w in lv) * 2
-    g = counts.g2sp_map_cells(items, 1)
+    g = g2sp.map_cells(MODEL_FULL)
     k4 = sum(B * (n * C * 2 + V * 64 + 3 * V * A * C * 4)
              for (A, C, h, w), (n, V) in zip(lv, g)) * 2
-    assert counts.k1_bytes(MODEL_FULL, B) == k1
+    assert counts.k1_bytes(MODEL_FULL, B, s2gp) == k1
     assert counts.k3_bytes(MODEL_FULL, B) == k3
-    assert counts.k4_bytes(MODEL_FULL, B, 1) == k4
+    assert counts.k4_bytes(MODEL_FULL, B, g2sp) == k4
     assert all(0 < n <= A * A for (A, _, _, _), n in zip(lv, cells))
     assert all(0 < n <= h * w and 0 < V <= A
                for (A, _, h, w), (n, V) in zip(lv, g))
+
+
+def test_k7_bytes_by_hand():
+    """Per round and level, the kept samples' four float32 rows of C in
+    and 9 float32 sums a line out; at most the samples that land in the
+    ground map at the zero pose, counted from the pinhole by hand."""
+    B = 2
+    lv = counts.levels(MODEL_FULL)
+    g, kept = g2sp.map_cells(MODEL_FULL), g2sp.kept_samples(MODEL_FULL)
+    k7 = sum(B * (k * 4 * C * 4 + V * 9 * 4)
+             for (A, C, h, w), (n, V), k in zip(lv, g, kept)) * 2
+    assert counts.k7_bytes(MODEL_FULL, B, g2sp) == k7
+    ranges, K = (10.0, 20.0, 20.0), g2sp.DEFAULT_K
+    for (A, C, h, w), (n, V), k in zip(lv, g, kept):
+        j0 = g2sp.first_column(A, h, w, ranges)
+        assert V == A - j0
+        fx, cx = K[0, 0] * w / 1024, K[0, 2] * w / 1024
+        fy, cy = K[1, 1] * h / 256, K[1, 2] * h / 256
+        mpp = s2gp.meter_per_pixel(A)
+        hits = 0
+        for i in range(A):                    # satellite row: X south
+            for j in range(j0, A):            # served column: Z east
+                X, Z = mpp * (i - A // 2), mpp * (j - A // 2)
+                if Z <= 1e-6:
+                    continue
+                u, v = fx * X / Z + cx, fy * s2gp.CAMERA_HEIGHT / Z + cy
+                hits += 0 <= u < w - 1 and 0 <= v < h - 1
+        assert 0 < k <= hits
 
 
 def test_k1_footprint_within_the_samples_cells():
     """At the zero pose a ground point (X, Z) falls on satellite pixel
     (u, v) = (Z, X) / mpp + A / 2: the footprint counted is at most the
     cells under every in-map sample of the kept rows."""
-    from benchmark.reference import s2gp
-    cells = counts.s2gp_map_cells(tuple(sorted(MODEL_FULL.items())))
+    cells = s2gp.map_cells(MODEL_FULL)
     for (A, C, h, w), n in zip(counts.levels(MODEL_FULL), cells):
         xyz, _ = s2gp.rays(h, w, 64, 256)
         mpp = s2gp.meter_per_pixel(A)
@@ -122,7 +149,6 @@ def test_trace_reduce_by_hand():
 
 
 def test_mfu_divides_by_the_untraced_call():
-    from benchmark.harness import spec
     model = dict(MODEL_FULL)
     t = trace.Trace(calls=8, window_us=4e6, busy_us=3e6, device=[],
                     conv_us=0.0, gaps=[], call_s=0.25, model=model,
@@ -134,3 +160,25 @@ def test_mfu_divides_by_the_untraced_call():
         got = spec.metric_reader(name)(t)
         assert got == pytest.approx(100 * flops / 0.25 / 989e12)
     assert spec.metric_reader("idle_share.train")(t) == pytest.approx(25.0)
+
+
+@pytest.mark.parametrize("name,kernel,ref,bytes_of", [
+    ("k1_roofline.serve", "banded_moments", "s2gp", counts.k1_bytes),
+    ("k4_roofline.serve", "projline_sample_kernel", "g2sp", counts.k4_bytes),
+    ("k7_roofline.serve", "projline_linemom_kernel", "g2sp",
+     counts.k7_bytes)])
+def test_roofline_readers_by_hand(name, kernel, ref, bytes_of):
+    """A reader's share: the bytes of the traced calls over 3.35 TB/s, over
+    the device time of its kernel; silent where the kernel never ran."""
+    ref = {"s2gp": s2gp, "g2sp": g2sp}[ref]
+    route = {"g2sp_restrict_grid": 1}
+    t = trace.Trace(calls=4, window_us=1e6, busy_us=5e5, conv_us=0.0,
+                    gaps=[], device=[(f"void {kernel}<4>(...)", 300.0),
+                                     (f"{kernel}", 200.0), ("other", 9.0)],
+                    model=dict(MODEL_FULL), route=route,
+                    traffic={"batch": 2}, reference=ref)
+    least = bytes_of({**MODEL_FULL, **route}, 2, ref) * 4 / 3.35e12
+    read = spec.metric_reader(name)
+    assert read(t) == pytest.approx(100 * least / 500e-6)
+    t.device = [("other", 9.0)]
+    assert read(t) is None
