@@ -447,10 +447,13 @@ class S2GPBase(nn.Module):
 
     def _line_uv(self, pose, slot: int, A: int, geo: tuple):
         """(uv01 [B, V, 2, 2], duv01 [B, V, 2, 2, 3], swap) of the kept
-        rows."""
-        uv01, duv01 = self._uv_jac(pose, getattr(self, f"rows01_{slot}"), A,
-                                   geo)
-        return uv01, duv01, self._swap(geo)
+        rows, projected under the span ``hat.solver.project`` labelled with
+        the kernel layout (``swap=0`` or ``swap=1``)."""
+        swap = self._swap(geo)
+        with span("hat.solver.project", f"swap={int(swap)}"):
+            uv01, duv01 = self._uv_jac(pose, getattr(self, f"rows01_{slot}"),
+                                       A, geo)
+        return uv01, duv01, swap
 
     def _fused_eval(self, train: bool) -> bool:
         """Whether an evaluation round runs K1 (JAX: the banded implicit

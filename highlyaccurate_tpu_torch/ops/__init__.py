@@ -4,7 +4,12 @@
 ``launches`` attribute counts the launches of its CUDA kernel (never its
 plain version's runs on the CPU).  ``reset_launches``, ``launch_counts``
 and ``expect_launches`` are the one place that reads and checks them.
+The banded kernels' wrappers (K1-K3) also count, in ``unswapped``, those
+of their launches that took the map in the unswapped layout
+(``unswapped_launch_counts``).
 """
+
+BANDED = ("k1", "k2", "k3")
 
 
 def launch_counters() -> dict:
@@ -20,14 +25,26 @@ def launch_counters() -> dict:
 
 
 def reset_launches() -> None:
-    """Set every kernel's launch count to 0."""
-    for fn in launch_counters().values():
+    """Set every kernel's launch count, and the banded kernels' unswapped
+    counts, to 0."""
+    for k, fn in launch_counters().items():
         fn.launches = 0
+        if k in BANDED:
+            fn.unswapped = 0
 
 
 def launch_counts() -> dict:
     """{"k1": n, ..., "k7": n}: each kernel's launches so far."""
     return {k: fn.launches for k, fn in launch_counters().items()}
+
+
+def unswapped_launch_counts() -> dict:
+    """{"k1": n, "k2": n, "k3": n}: the banded kernels' launches so far in
+    the unswapped layout (``banded_project(swap=False)``: kernel x is the
+    map's own contiguous row axis, as under the Ford data's rig), of those
+    ``launch_counts`` counts."""
+    counters = launch_counters()
+    return {k: counters[k].unswapped for k in BANDED}
 
 
 def expect_launches(what: str, expected: dict) -> dict:

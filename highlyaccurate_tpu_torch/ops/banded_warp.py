@@ -19,7 +19,9 @@ Each kernel's wrapper launches its CUDA kernel (``csrc/banded_moments.cu``,
 ``csrc/banded_sampler.cu``) on CUDA tensors, or raises; on CPU tensors it
 runs the plain PyTorch version beside it, which the tests hold to the JAX
 kernel.  ``banded_moments.launches``, ``banded_sample.launches`` (K2) and
-``banded_sample_backward.launches`` (K3) count kernel launches.  The
+``banded_sample_backward.launches`` (K3) count kernel launches, and their
+``unswapped`` attributes those whose map was in the unswapped layout
+(``unswapped_layout``: kernel x is the map's own contiguous row axis).  The
 forward launches, K1 and K2, are ``torch.library`` custom ops
 (``highlyaccurate_tpu_torch::banded_moments``, ``::banded_sample``) whose
 body is the ctypes launch and whose fake function gives the output shapes,
@@ -97,6 +99,14 @@ def pack_row_coefs(uv0, uv1, A: int, RB: int, W: int):
     zeros = torch.zeros_like(ax)
     return torch.stack([ax, bx, ay, by, slope, oy, n_chunks, zeros],
                        dim=-1).to(torch.float32)
+
+
+def unswapped_layout(sat_k) -> bool:
+    """Whether the map view [B, A, A, C] that a banded kernel takes walks
+    its lines along the map's own contiguous row axis (kernel x = axis 2,
+    the unswapped layout of ``banded_project``), not along a transposed
+    view's slow axis."""
+    return sat_k.stride(2) < sat_k.stride(1)
 
 
 def _map_dtype(bf16_map: bool):
@@ -327,6 +337,7 @@ def _launch(sat_k, grd, mask, coefs, bf16_map: bool):
          mask.data_ptr(), out.data_ptr(), B, V, W, A, C, sat_k.stride(0),
          sat_k.stride(1), sat_k.stride(2), grd.stride(0), int(bf16_map))
     banded_moments.launches += 1
+    banded_moments.unswapped += unswapped_layout(sat_k)
     return out
 
 
@@ -378,7 +389,7 @@ def banded_moments(sat_k, grd, mask, uv0, uv1, *, RB: int, bf16_map: bool):
                               coefs, bf16_map=bf16_map)
 
 
-banded_moments.launches = 0
+banded_moments.launches = banded_moments.unswapped = 0
 
 
 def banded_sample_forward(sat_k, coefs, W: int, *, with_dxy: bool):
@@ -417,6 +428,7 @@ def _banded_sample_op(sat_k, coefs, W, with_dxy):
          sat_k.stride(0), sat_k.stride(1), sat_k.stride(2),
          int(sat_k.dtype == torch.bfloat16))
     banded_sample.launches += 1
+    banded_sample.unswapped += unswapped_layout(sat_k)
     return list(outs)
 
 
@@ -427,11 +439,14 @@ def _(sat_k, coefs, W, with_dxy):
             for _ in range(4 if with_dxy else 3)]
 
 
-def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int):
+def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int,
+                           unswapped: bool = False):
     """K3: the map gradient [B, A, A, C] float32 (kernel axes) of K2's
     (out, dx, dy) under the cotangents g_o, g_dx, g_dy [B, V, W, C] float32.
     The CUDA kernel for CUDA tensors (or raises), the plain
-    ``banded_sample_backward_reference`` for CPU tensors.
+    ``banded_sample_backward_reference`` for CPU tensors.  ``unswapped``:
+    the forward's map was in the unswapped layout (``unswapped_layout``),
+    which the launch count keeps.
 
     Its work is bytes: the kept samples' cotangents read and the whole
     gradient written.  One block owns a tile of 8 x 4 map cells x 64
@@ -461,10 +476,11 @@ def banded_sample_backward(coefs, g_o, g_dx, g_dy, A: int):
     _run(k, fn, dev, coefs.data_ptr(), g_o.data_ptr(), g_dx.data_ptr(),
          g_dy.data_ptr(), grad.data_ptr(), B, V, W, A, C)
     banded_sample_backward.launches += 1
+    banded_sample_backward.unswapped += unswapped
     return grad
 
 
-banded_sample_backward.launches = 0
+banded_sample_backward.launches = banded_sample_backward.unswapped = 0
 
 
 class BandedSample(torch.autograd.Function):
@@ -485,7 +501,7 @@ class BandedSample(torch.autograd.Function):
         with_dxy = ctx.needs_input_grad[1]
         outs = banded_sample_forward(sat.to(_map_dtype(bf16_map)), coefs, W,
                                      with_dxy=with_dxy)
-        ctx.A = sat.shape[1]
+        ctx.A, ctx.unswapped = sat.shape[1], unswapped_layout(sat)
         ctx.save_for_backward(coefs, *outs[1:])
         return outs[:3]
 
@@ -496,7 +512,8 @@ class BandedSample(torch.autograd.Function):
         g_o, g_dx, g_dy = (g.contiguous() for g in (g_o, g_dx, g_dy))
         grad_sat = grad_coefs = None
         if ctx.needs_input_grad[0]:
-            grad_sat = banded_sample_backward(coefs, g_o, g_dx, g_dy, ctx.A)
+            grad_sat = banded_sample_backward(coefs, g_o, g_dx, g_dy, ctx.A,
+                                              ctx.unswapped)
         if ctx.needs_input_grad[1]:
             # bilinear second derivatives: d2/dx2 = d2/dy2 = 0 almost
             # everywhere, the cross term dxy survives
@@ -528,4 +545,4 @@ def banded_sample(sat, uv0, uv1, *, W: int, RB: int, bf16_map: bool):
     return BandedSample.apply(sat.to(torch.float32), coefs, W, bf16_map)
 
 
-banded_sample.launches = 0
+banded_sample.launches = banded_sample.unswapped = 0

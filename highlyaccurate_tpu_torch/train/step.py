@@ -224,12 +224,15 @@ def _gather(mesh: Mesh, t):
 
 def make_train_step(model: torch.nn.Module, cfg: Config,
                     mesh: Optional[Mesh] = None, ford_side_m=None,
-                    freeze_backbones: bool = False):
+                    ford_extrinsics=None, freeze_backbones: bool = False):
     """S2GP (an ``LMS2GP``): ``step(state, sat, grd, gt_pose, generator)``;
     G2SP (an ``LMG2SP``): ``step(state, sat, grd, camera_k, gt_pose,
     generator)``; Ford (an ``LMS2GPFord``, with ``ford_side_m`` the
     satellite patch's side in meters): ``step(state, sat, grd, R_FL, T_FL,
-    gt_pose, generator)``; each returns (state, metrics).
+    gt_pose, generator)``, or ``step(state, sat, grd, gt_pose, generator)``
+    where ``ford_extrinsics`` = (R_FL [3, 3], T_FL [3]) gives every
+    image's rig (kept on the host, as ``Localizer``'s); each returns
+    (state, metrics).
 
     sat [B, A, A, 3], grd [B, H, W, 3] float32 images, camera_k [B, 3, 3]
     (G2SP), R_FL [B, 3, 3] and T_FL [B, 3] (Ford) and gt_pose [B, 3]
@@ -254,6 +257,12 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
     """
     g2sp = cfg.direction == "G2SP"
     ford = ford_side_m is not None
+    if ford_extrinsics is not None:
+        if not ford:
+            raise ValueError("ford_extrinsics= is the Ford rig; it needs "
+                             "ford_side_m=")
+        rig_R, rig_T = (torch.as_tensor(np.asarray(x, np.float32)).reshape(
+            shape) for x, shape in zip(ford_extrinsics, ((3, 3), (3,))))
     if mesh is not None and (len(mesh.devices) != 1
                              or mesh.devices[0] != model.device):
         raise ValueError(f"a training mesh holds the model's device alone "
@@ -264,6 +273,9 @@ def make_train_step(model: torch.nn.Module, cfg: Config,
 
     def step(state: TrainState, sat, grd, *rest, gt_depth=None):
         if ford:
+            if len(rest) == 2 and ford_extrinsics is not None:
+                n = sat.shape[0]
+                rest = (rig_R.expand(n, 3, 3), rig_T.expand(n, 3)) + rest
             R_FL, T_FL, gt_pose, generator = rest
             args = (ford_side_m, R_FL, T_FL)
             fwd = dict(generator=generator)

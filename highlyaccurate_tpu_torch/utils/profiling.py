@@ -5,10 +5,10 @@
     (Perfetto / chrome://tracing load it);
   * ``span(name)`` — the program's own spans at its layer boundaries
     (``hat.predict``, ``hat.features``, ``hat.solver.round.l<k>``,
-    ``hat.train.backward``, ...).  They record only while a torch profiler
-    runs or after ``enable_spans(True)``; otherwise each costs one flag
-    check.  ``span_table()`` reads what they recorded, ``reset_spans()``
-    clears it.
+    ``hat.solver.project``, ``hat.train.backward``, ...).  They record
+    only while a torch profiler runs or after ``enable_spans(True)``;
+    otherwise each costs one flag check.  ``span_table()`` reads what
+    they recorded, ``reset_spans()`` clears it.
 
 A span's name is dotted under the span that encloses it where it has one
 place in the program (``hat.predict.h2d`` inside ``hat.predict``); the
